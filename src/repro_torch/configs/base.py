@@ -1,0 +1,174 @@
+"""Config dataclasses + the seqrec arch registry.
+
+A framework-free copy of the reference's ``configs/base.py``, cut to the
+classes the serving path reads (``PQConfig``, ``AttentionConfig``,
+``SeqRecConfig``, ``ArchConfig``).  Field names, defaults and validation
+are unchanged, so a config built here describes the same model as its
+namesake in the reference.
+"""
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass, field
+from typing import Any, Tuple
+
+#: Largest codebook width each storage dtype can index.
+CODE_DTYPE_CAPACITY = {"int8": 128, "uint8": 256, "int16": 32_768,
+                       "uint16": 65_536, "int32": 2 ** 31 - 1}
+
+
+def min_code_dtype(b: int) -> str:
+    """Narrowest supported storage dtype for a codebook of width ``b``."""
+    for name in ("uint8", "uint16", "int32"):
+        if b <= CODE_DTYPE_CAPACITY[name]:
+            return name
+    raise ValueError(f"b={b} exceeds int32 code storage")
+
+
+@dataclass(frozen=True)
+class PQConfig:
+    """Sub-item-id decomposition (RecJPQ) of a large id space.
+
+    The seed/bound/grouping/super-tile fields configure the pruned cascade,
+    which this package does not serve yet; they are kept so that a config
+    round-trips unchanged between the two packages."""
+
+    m: int = 8
+    b: int = 256
+    assign: str = "svd"
+    code_dtype: str = "int32"
+    seed_policy: str = "greedy"
+    seed_tiles: int = 2
+    seed_max_tiles: int = 16
+    seed_stab_tol: float = 0.05
+    bound_backend: str = "bitmask"
+    query_grouping: bool = False
+    n_groups: int = 8
+    super_factor: int = 0
+
+    def __post_init__(self):
+        if self.b > 2 ** 16:
+            raise ValueError("b > 65536 not supported (codes stored <= int32)")
+        cap = CODE_DTYPE_CAPACITY.get(self.code_dtype)
+        if cap is None:
+            raise ValueError(f"unsupported code_dtype {self.code_dtype!r}; "
+                             f"one of {sorted(CODE_DTYPE_CAPACITY)}")
+        if self.b > cap:
+            raise ValueError(
+                f"b={self.b} does not fit code_dtype={self.code_dtype!r} "
+                f"(max {cap}); use {min_code_dtype(self.b)!r}")
+        if self.seed_policy not in ("greedy", "adaptive"):
+            raise ValueError(f"unknown seed_policy {self.seed_policy!r}; "
+                             "one of ('greedy', 'adaptive')")
+        if not 1 <= self.seed_tiles <= self.seed_max_tiles:
+            raise ValueError(
+                f"need 1 <= seed_tiles ({self.seed_tiles}) <= "
+                f"seed_max_tiles ({self.seed_max_tiles})")
+        if self.seed_stab_tol <= 0:
+            raise ValueError("seed_stab_tol must be positive")
+        if self.bound_backend not in ("bitmask", "range"):
+            raise ValueError(
+                f"unknown bound_backend {self.bound_backend!r}; "
+                "one of ('bitmask', 'range')")
+        if self.bound_backend == "range" and self.b > 2 ** 15:
+            raise ValueError(
+                f"bound_backend='range' stores int16 code ranges; "
+                f"b={self.b} exceeds int16 — use bound_backend='bitmask'")
+        if self.n_groups < 1:
+            raise ValueError(f"n_groups must be >= 1, got {self.n_groups}")
+        if self.super_factor < 0 or self.super_factor == 1:
+            raise ValueError(
+                f"super_factor must be 0 (no super level) or >= 2, got "
+                f"{self.super_factor}")
+        if self.super_factor > 1 and self.query_grouping:
+            raise ValueError(
+                "super_factor > 1 and query_grouping are mutually exclusive")
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    window: int = 0
+    local_global_ratio: int = 0
+
+
+@dataclass(frozen=True)
+class SeqRecConfig:
+    name: str
+    backbone: str              # sasrec | bert4rec
+    n_items: int
+    d_model: int = 512
+    n_blocks: int = 2
+    n_heads: int = 8
+    d_ff: int = 1024
+    max_seq_len: int = 200
+    dropout: float = 0.0
+    pq: PQConfig = field(default_factory=PQConfig)
+    dtype: str = "float32"
+    param_dtype: str = "float32"
+    moment_dtype: str = "float32"
+    n_negatives: int = 256
+    gbce_t: float = 0.75
+    # Default scoring route for serving (retrieval_head.TOP_ITEMS_METHODS).
+    serve_method: str = "pqtopk"
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One (input-shape x step-kind) cell of the reference's dry-run matrix."""
+
+    name: str
+    kind: str
+    dims: Any = field(default_factory=dict)
+    skip_reason: str = ""
+
+
+def seqrec_shapes(n_items: int) -> Tuple[ShapeSpec, ...]:
+    return (
+        ShapeSpec("train_seq", "train", {"global_batch": 4096, "seq_len": 200}),
+        ShapeSpec("serve_users", "retrieval",
+                  {"global_batch": 2048, "seq_len": 200,
+                   "n_candidates": n_items}),
+    )
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    family: str
+    model: Any
+    shapes: Tuple[ShapeSpec, ...]
+    source: str = ""
+    notes: str = ""
+
+
+_REGISTRY = {
+    "sasrec-recjpq": "sasrec_recjpq",
+    "gbert4rec-recjpq": "gbert4rec_recjpq",
+}
+
+
+def _module(arch_id: str):
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
+    return importlib.import_module(f"repro_torch.configs.{_REGISTRY[arch_id]}")
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_reduced(arch_id: str) -> ArchConfig:
+    return _module(arch_id).reduced()
+
+
+__all__ = [
+    "PQConfig", "CODE_DTYPE_CAPACITY", "min_code_dtype", "AttentionConfig",
+    "SeqRecConfig", "ShapeSpec", "ArchConfig", "seqrec_shapes",
+    "get_config", "get_reduced",
+]

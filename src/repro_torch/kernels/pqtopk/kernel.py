@@ -1,0 +1,199 @@
+"""CUDA kernels for PQTopK scoring on Hopper, and their ctypes binding.
+
+``csrc/pqtopk.cu`` holds two hand-written kernels (its header notes say
+which TPU kernel each replaces and what bounds it on the card):
+
+* ``pq_scores``     — all PQ scores (B, N), the ``pqtopk_kernel`` route;
+* ``pq_topk_fused`` — per item-tile exact top-K, the ``pqtopk_fused``
+  route; the cross-slot merge is ``ops._merge_slot_winners``.
+
+The source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface under ``_build/`` beside this
+file (named by the source's hash, so an edited source rebuilds), and
+loaded with ``ctypes``.  Nothing is compiled or loaded on import: CPU-only
+hosts import this module and never call into it.
+
+Each wrapper checks device, dtype, shape and contiguity and raises on
+what its kernel does not take; it launches on the current CUDA stream and
+counts its launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import List
+
+import torch
+
+DEFAULT_TILE = 2048
+DEFAULT_BATCH_TILE = 128
+MAX_M = 64
+MAX_TILE = 2048          # a warp lane tracks its columns in one 64-bit mask
+MAX_SMEM = 232_448       # H100: dynamic shared memory a block may use
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "pqtopk.cu"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+CODE_TYPES = {torch.int8: 0, torch.uint8: 1, torch.int16: 2,
+              torch.uint16: 3, torch.int32: 4}
+
+_lib = None
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = Path("/usr/local/cuda/bin/nvcc")
+    if fallback.exists():
+        return str(fallback)
+    raise RuntimeError("nvcc not found on PATH or under /usr/local/cuda; "
+                       "the CUDA kernels cannot be built on this host")
+
+
+def nvcc_command(out: Path, nvcc: str = "nvcc") -> List[str]:
+    """The build line: sm_90a, no fast-math (it flushes subnormal sums to
+    zero and breaks bit-exactness against the plain versions)."""
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-o", str(out), str(SOURCE)]
+
+
+def library_path() -> Path:
+    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"libpqtopk_{digest}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless this source's library exists; returns
+    its path.  The library is written to a temporary name and renamed, so
+    a process never loads a half-written file from a concurrent build."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(nvcc_command(Path(tmp), nvcc_path()),
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        (BUILD_DIR / "ptxas.log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.pq_smem_bytes.argtypes = [i, i, i, i, i]
+        lib.pq_smem_bytes.restype = i
+        lib.pq_scores_launch.argtypes = [p, i, p, p, i, i, i, i, p]
+        lib.pq_scores_launch.restype = i
+        lib.pq_topk_fused_launch.argtypes = [p, i, p, p, p, p, i, i, i, i, i,
+                                             i, i, i, p]
+        lib.pq_topk_fused_launch.restype = i
+        _lib = lib
+    return _lib
+
+
+def _check_inputs(codes: torch.Tensor, s: torch.Tensor):
+    if not (codes.is_cuda and s.is_cuda) or codes.device != s.device:
+        raise ValueError(f"CUDA kernel needs codes and s on one CUDA device, "
+                         f"got {codes.device} and {s.device}")
+    if codes.dtype not in CODE_TYPES:
+        raise ValueError(f"unsupported code dtype {codes.dtype}")
+    if s.dtype != torch.float32:
+        raise ValueError(f"s must be float32, got {s.dtype}")
+    if codes.dim() != 2 or s.dim() != 3 or codes.shape[1] != s.shape[1]:
+        raise ValueError(f"need codes (N, m) and s (B, m, b), got "
+                         f"{tuple(codes.shape)} and {tuple(s.shape)}")
+    n, m = codes.shape
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"m={m} outside [1, {MAX_M}]")
+    if n < 1 or s.shape[0] < 1 or n >= 2 ** 31:
+        raise ValueError(f"empty or oversized input: N={n}, B={s.shape[0]}")
+    if not (codes.is_contiguous() and s.is_contiguous()):
+        raise ValueError("codes and s must be contiguous")
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def pq_scores_cuda(codes: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """codes (N, m) int, s (B, m, b) f32, both on the card -> (B, N) f32."""
+    _check_inputs(codes, s)
+    n, m = codes.shape
+    bq, _, b = s.shape
+    lib = _load()
+    if lib.pq_smem_bytes(0, m, b, bq, 0) > MAX_SMEM:
+        raise ValueError(f"S for one query (m={m}, b={b}) does not fit in "
+                         "shared memory")
+    out = torch.empty((bq, n), dtype=torch.float32, device=s.device)
+    stream = torch.cuda.current_stream(s.device).cuda_stream
+    err = lib.pq_scores_launch(codes.data_ptr(), CODE_TYPES[codes.dtype],
+                               s.data_ptr(), out.data_ptr(), n, m, b, bq,
+                               stream)
+    _raise_on(err, "pq_scores")
+    pq_scores_cuda.launches += 1
+    return out
+
+
+pq_scores_cuda.launches = 0
+
+
+def pq_topk_fused_cuda(codes: torch.Tensor, s: torch.Tensor, k: int,
+                       tile_idx: torch.Tensor, *, n_items: int, tile: int):
+    """Per-slot exact top-``k`` of codes tile ``tile_idx[i]`` (1D int32,
+    ``-1`` = sentinel slot), global ids, ids >= ``n_items`` masked to -inf.
+    -> (vals (B, n_slots, k) f32, ids (B, n_slots, k) i32)."""
+    _check_inputs(codes, s)
+    n, m = codes.shape
+    bq, _, b = s.shape
+    if tile_idx.dim() != 1 or tile_idx.dtype != torch.int32 \
+            or tile_idx.device != s.device or not tile_idx.is_contiguous():
+        raise ValueError("tile_idx must be a contiguous 1D int32 tensor on "
+                         "the kernel's device")
+    if tile % 32 or not 32 <= tile <= MAX_TILE:
+        raise ValueError(f"tile={tile} must be a multiple of 32 in "
+                         f"[32, {MAX_TILE}]")
+    if not 1 <= k <= tile:
+        raise ValueError(f"k={k} outside [1, tile={tile}]")
+    if not 0 <= n_items <= n:
+        raise ValueError(f"n_items={n_items} outside [0, N={n}]")
+    lib = _load()
+    if lib.pq_smem_bytes(1, m, b, bq, tile) > MAX_SMEM:
+        raise ValueError(f"S and one score tile (m={m}, b={b}, tile={tile}) "
+                         "do not fit in shared memory")
+    n_slots = tile_idx.shape[0]
+    out_v = torch.empty((bq, n_slots, k), dtype=torch.float32,
+                        device=s.device)
+    out_i = torch.empty((bq, n_slots, k), dtype=torch.int32, device=s.device)
+    if n_slots == 0:
+        return out_v, out_i
+    stream = torch.cuda.current_stream(s.device).cuda_stream
+    err = lib.pq_topk_fused_launch(
+        codes.data_ptr(), CODE_TYPES[codes.dtype], s.data_ptr(),
+        tile_idx.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), n, n_items,
+        m, b, bq, n_slots, tile, k, stream)
+    _raise_on(err, "pq_topk_fused")
+    pq_topk_fused_cuda.launches += 1
+    return out_v, out_i
+
+
+pq_topk_fused_cuda.launches = 0

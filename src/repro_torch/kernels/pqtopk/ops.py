@@ -1,0 +1,96 @@
+"""Public wrappers around the PQTopK kernels.
+
+A tensor on the card goes to the CUDA kernel (or the call raises); a
+tensor on the CPU goes to the kernel's plain version in :mod:`ref`.  The
+wrappers own the item-tile rule ``tile = min(2048, round_up(N, 128))``
+and the ``k > tile`` error, which the engine's ``max_k`` and the slot
+count depend on, and the cross-slot merge of the fused kernel's winners.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import topk as topk_lib
+from repro_torch.kernels.pqtopk import kernel as _k, ref as _ref
+
+NEG_INF = float("-inf")
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def effective_batch_tile(bq: int,
+                         batch_tile: int = _k.DEFAULT_BATCH_TILE) -> int:
+    """Batch-tile size the reference's fused kernel pads a batch of ``bq``
+    queries to (small batches round up to 8, never past the default).  The
+    CUDA kernel and the plain version take any batch; this and the two
+    ``_pad_*`` helpers mirror the reference's padding for parity checks."""
+    return min(batch_tile, _round_up(bq, 8))
+
+
+def n_tiles(n: int, tile: int) -> int:
+    """Number of item tiles covering an N-item catalogue."""
+    return -(-n // tile)
+
+
+def sentinel_tile(n: int, tile: int) -> int:
+    """Index of the all-padding tile just past the catalogue."""
+    return n_tiles(n, tile)
+
+
+def _pad_codes(codes: torch.Tensor, tile: int, *, sentinel: bool = False
+               ) -> torch.Tensor:
+    n = codes.shape[0]
+    pad = (-n) % tile + (tile if sentinel else 0)
+    if pad:
+        codes = torch.cat([codes, codes.new_zeros((pad, codes.shape[1]))])
+    return codes
+
+
+def _pad_batch(s: torch.Tensor, batch_tile: int) -> torch.Tensor:
+    pad = (-s.shape[0]) % batch_tile
+    if pad:
+        s = F.pad(s, (0, 0, 0, 0, 0, pad))
+    return s
+
+
+def _merge_slot_winners(tv: torch.Tensor, ti: torch.Tensor, k: int):
+    """(B, n_slots, K) per-slot winners -> global (B, k).  Slots ascend in
+    id order, so a stable descending sort of the flattened candidates
+    breaks ties by the lowest global id."""
+    bq, slots, kk = tv.shape
+    fv, fi = topk_lib.topk(tv.reshape(bq, slots * kk), k)
+    return fv, torch.gather(ti.reshape(bq, slots * kk), 1, fi.long())
+
+
+def pq_scores(codes: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """PQ scores for all items. codes (N,m), s (B,m,b) -> (B,N) f32."""
+    if s.is_cuda:
+        return _k.pq_scores_cuda(codes.contiguous(), s.contiguous())
+    return _ref.pq_scores(codes, s)
+
+
+def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
+                  tile_idx: torch.Tensor, *, n_items: int, tile: int):
+    """The fused kernel's output: per-slot winners (B, n_slots, k)."""
+    if s.is_cuda:
+        return _k.pq_topk_fused_cuda(codes.contiguous(), s.contiguous(), k,
+                                     tile_idx, n_items=n_items, tile=tile)
+    return _ref.pq_topk_slots(codes, s, k, tile_idx, n_items=n_items,
+                              tile=tile)
+
+
+def pq_topk(codes: torch.Tensor, s: torch.Tensor, k: int, *,
+            tile: int = _k.DEFAULT_TILE):
+    """Fused PQ scoring + exact top-k over the whole catalogue (identity
+    tile list; the tile winners contain all global winners when k <= tile).
+    -> (vals (B,k), ids (B,k))."""
+    n = codes.shape[0]
+    tile = min(tile, _round_up(n, 128))
+    if k > tile:
+        raise ValueError(f"k={k} > tile={tile}")
+    idx = torch.arange(n_tiles(n, tile), dtype=torch.int32, device=s.device)
+    tv, ti = pq_topk_slots(codes, s, k, idx, n_items=n, tile=tile)
+    return _merge_slot_winners(tv, ti, k)

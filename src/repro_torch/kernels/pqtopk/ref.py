@@ -1,0 +1,56 @@
+"""Plain PyTorch versions of the two PQTopK kernels.
+
+The CPU path of :mod:`ops` runs these, and ``chip_smoke.py`` holds each
+CUDA kernel against them on the card.  Their float32 add order is the
+kernels' (``tree_sum`` over the per-split gathers), so the comparison is
+at atol=0.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import pq as pq_lib
+from repro_torch.core import topk as topk_lib
+from repro_torch.core.scoring import score_pqtopk
+
+NEG_INF = float("-inf")
+
+
+def pq_scores(codes: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """r[q, i] = sum_k s[q, k, codes[i, k]].  codes (N,m), s (B,m,b) ->
+    (B,N) f32, reduced in ``tree_sum`` order."""
+    return score_pqtopk(codes, s)
+
+
+def pq_topk(codes: torch.Tensor, s: torch.Tensor, k: int):
+    """Exact global top-k of :func:`pq_scores` -> (vals (B,k), ids (B,k))."""
+    return topk_lib.topk(pq_scores(codes, s), k)
+
+
+def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
+                  tile_idx: torch.Tensor, *, n_items: int, tile: int):
+    """What the fused kernel writes: for each slot ``i`` the exact top-``k``
+    of codes tile ``tile_idx[i]`` per query, with global ids and ids
+    ``>= n_items`` masked to ``-inf`` first; ties to the lowest id.  A
+    ``-1`` slot emits ``(-inf, n_items)``.  -> (B, n_slots, k) f32 + i32.
+
+    Tiles may run past the codes' rows (a ragged last tile, or a whole
+    tile past the catalogue): those rows score as padding and are masked.
+    """
+    n = codes.shape[0]
+    bq = s.shape[0]
+    n_slots = tile_idx.shape[0]
+    dev = s.device
+    tid = tile_idx.to(device=dev, dtype=torch.int64)
+    gid = (tid.clamp(min=0)[:, None] * tile
+           + torch.arange(tile, device=dev)[None, :])          # (slots, tile)
+    rows = pq_lib.take_rows(codes, gid.clamp(max=n - 1).reshape(-1))
+    sc = pq_scores(rows, s).reshape(bq, n_slots, tile)
+    sc = torch.where((gid < n_items) & (gid < n), sc, NEG_INF)
+    v, pos = topk_lib.topk(sc, k)                               # (B, S, k)
+    ids = torch.gather(gid.expand(bq, n_slots, tile), 2,
+                       pos.long()).to(torch.int32)
+    dead = (tid < 0)[None, :, None]
+    v = torch.where(dead, NEG_INF, v)
+    ids = torch.where(dead, n_items, ids)
+    return v, ids

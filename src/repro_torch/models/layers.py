@@ -1,0 +1,100 @@
+"""Shared NN building blocks as plain functions on parameter dicts.
+
+Weights keep the reference's layout: a dense layer's ``w`` is
+``(d_in, d_out)`` and applies as ``x @ w``.  Three details differ from
+PyTorch's habits and follow the reference instead:
+
+* ``apply_norm`` uses eps=1e-6 (not ``nn.LayerNorm``'s 1e-5);
+* ``activation("gelu")`` is the tanh form (``jax.nn.gelu``'s default);
+* RoPE rotates split halves, not interleaved pairs.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int, *,
+               bias: bool = False, scale: float | None = None) -> Params:
+    scale = scale if scale is not None else d_in ** -0.5
+    p = {"w": torch.randn((d_in, d_out), generator=generator) * scale}
+    if bias:
+        p["b"] = torch.zeros((d_out,))
+    return p
+
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def embedding_init(generator: torch.Generator, vocab: int, d: int,
+                   scale: float = 0.02) -> Params:
+    return {"table": torch.randn((vocab, d), generator=generator) * scale}
+
+
+def norm_init(d: int, kind: str = "rmsnorm") -> Params:
+    p = {"scale": torch.ones((d,))}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,))
+    return p
+
+
+def apply_norm(p: Params, x: torch.Tensor, kind: str = "rmsnorm",
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if kind == "rmsnorm":
+        xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    elif kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        xf = (xf - mu) * torch.rsqrt(var + eps)
+    else:
+        raise ValueError(kind)
+    y = xf * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def activation(name: str):
+    """The seqrec models' activation; ``jax.nn.gelu`` is the tanh form."""
+    if name != "gelu":
+        raise ValueError(f"activation {name!r} is not ported")
+    return lambda x: F.gelu(x, approximate="tanh")
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D), positions: broadcastable to (..., S)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)        # (D/2,)
+    angles = positions[..., None].float() * freqs                 # (..., S, D/2)
+    angles = angles[..., None, :]                                 # (..., S, 1, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_init(generator: torch.Generator, d_model: int, d_ff: int) -> Params:
+    """The plain two-matrix MLP of the seqrec blocks."""
+    return {
+        "up": dense_init(generator, d_model, d_ff),
+        "down": dense_init(generator, d_ff, d_model, scale=d_ff ** -0.5),
+    }
+
+
+def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    return dense(p["down"], activation(act)(dense(p["up"], x)))

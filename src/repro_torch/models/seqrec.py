@@ -1,0 +1,105 @@
+"""SASRec / gBERT4Rec backbones with the RecJPQ item layer — the serving
+half of the reference's ``models/seqrec.py``.
+
+Item id 0 is padding; real items are 1..n_items.  The PQ embedding is
+shared between the input layer and the scoring head (as in RecJPQ).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import AttentionConfig, SeqRecConfig
+from repro_torch.core import retrieval_head
+from repro_torch.interop import to_device
+from repro_torch.models import attention as attn_lib, layers
+
+Params = Dict[str, Any]
+
+
+def _attn_cfg(cfg: SeqRecConfig) -> AttentionConfig:
+    return AttentionConfig(n_heads=cfg.n_heads, n_kv_heads=cfg.n_heads,
+                           head_dim=cfg.d_model // cfg.n_heads)
+
+
+def init_seqrec(generator: torch.Generator, cfg: SeqRecConfig, *,
+                device="cpu", codes=None, centroids=None) -> Params:
+    """Random weights with the reference's tree and scales, drawn on the
+    CPU from ``generator`` (so a seed gives the same weights on any
+    device), then moved to ``device``.  The values differ from the
+    reference's ``jax.random`` draws; ``interop.params_from_jax`` carries
+    the reference's own weights over."""
+    if cfg.param_dtype != "float32":
+        raise ValueError(f"param_dtype {cfg.param_dtype!r}: only float32 "
+                         "seqrec weights are ported")
+    acfg = _attn_cfg(cfg)
+    blocks = [{
+        "attn": attn_lib.attention_init(generator, acfg, cfg.d_model),
+        "ln1": layers.norm_init(cfg.d_model, "layernorm"),
+        "ln2": layers.norm_init(cfg.d_model, "layernorm"),
+        "mlp": layers.mlp_init(generator, cfg.d_model, cfg.d_ff),
+    } for _ in range(cfg.n_blocks)]
+    p: Params = {
+        # +1 row for padding id 0.
+        "item_emb": retrieval_head.init(generator, cfg.n_items + 1,
+                                        cfg.d_model, cfg.pq, codes=codes,
+                                        centroids=centroids),
+        "pos_emb": layers.embedding_init(generator, cfg.max_seq_len,
+                                         cfg.d_model),
+        "final_norm": layers.norm_init(cfg.d_model, "layernorm"),
+        "blocks": blocks,
+    }
+    if cfg.backbone == "bert4rec":
+        p["mask_emb"] = torch.randn((cfg.d_model,), generator=generator) * 0.02
+    return to_device(p, device)
+
+
+def _encode(params: Params, x: torch.Tensor, cfg: SeqRecConfig,
+            causal: bool) -> torch.Tensor:
+    acfg = _attn_cfg(cfg)
+    for blk in params["blocks"]:
+        h = layers.apply_norm(blk["ln1"], x, "layernorm")
+        x = x + attn_lib.full_attention(blk["attn"], acfg, h, causal=causal)
+        h = layers.apply_norm(blk["ln2"], x, "layernorm")
+        x = x + layers.mlp(blk["mlp"], h, "gelu")
+    return layers.apply_norm(params["final_norm"], x, "layernorm")
+
+
+def _embed_seq(params: Params, seq: torch.Tensor) -> torch.Tensor:
+    x = retrieval_head.embed(params["item_emb"], seq)
+    return x * (seq != 0)[..., None].to(x.dtype)
+
+
+def seqrec_hidden(params: Params, item_seq: torch.Tensor, cfg: SeqRecConfig,
+                  ) -> torch.Tensor:
+    """item_seq (B, S) int (0 = pad) -> hidden (B, S, d)."""
+    s = item_seq.shape[1]
+    x = _embed_seq(params, item_seq)
+    x = x + params["pos_emb"]["table"][None, :s].to(x.dtype)
+    return _encode(params, x, cfg, causal=cfg.backbone == "sasrec")
+
+
+def sequence_embedding(params: Params, item_seq: torch.Tensor,
+                       cfg: SeqRecConfig) -> torch.Tensor:
+    """phi for each user: the last position (SASRec), or a [MASK] slot
+    appended after the history shifted left (BERT4Rec)."""
+    if cfg.backbone == "bert4rec":
+        seq = torch.cat([item_seq[:, 1:], torch.zeros_like(item_seq[:, :1])],
+                        dim=1)
+        x = _embed_seq(params, seq)
+        x = torch.cat([x[:, :-1], params["mask_emb"].to(x.dtype)
+                       .expand(x.shape[0], 1, -1)], dim=1)
+        x = x + params["pos_emb"]["table"][None, :seq.shape[1]].to(x.dtype)
+        return _encode(params, x, cfg, causal=False)[:, -1, :].float()
+    return seqrec_hidden(params, item_seq, cfg)[:, -1, :].float()
+
+
+def serve_topk(params: Params, item_seq: torch.Tensor, cfg: SeqRecConfig, *,
+               k: int = 10, method: str = "pqtopk"):
+    """Full serving path: backbone -> phi -> scoring -> TopK (Table 3).
+    -> (ids (B,k) int32, scores (B,k) f32)."""
+    phi = sequence_embedding(params, item_seq, cfg)
+    vals, ids = retrieval_head.top_items(params["item_emb"], phi, k,
+                                         method=method)
+    return ids, vals

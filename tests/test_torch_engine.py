@@ -1,0 +1,141 @@
+"""The port's serving engine and serve launcher, on the CPU: the reference's
+``stats()`` schema and bucketing rules, serve-variant memoisation,
+left-padding, deadline and ``--fail-at`` shedding, and results equal to the
+port's own ``serve_topk``."""
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from repro.serving import engine as jengine
+from repro_torch.configs.base import get_reduced
+from repro_torch.launch import serve as tserve
+from repro_torch.models import seqrec
+from repro_torch.serving.engine import MicroBatcher, Request, RetrievalEngine
+from repro_torch.training.fault_tolerance import ServeFaultInjector
+
+CFG = get_reduced("sasrec-recjpq").model
+
+
+@pytest.fixture(scope="module")
+def params():
+    return seqrec.init_seqrec(torch.Generator().manual_seed(0), CFG)
+
+
+def _engine(params, **kw):
+    kw.setdefault("device", "cpu")
+    return RetrievalEngine.for_seqrec(params, CFG, **kw)
+
+
+def _history(rng, n=None):
+    n = int(rng.integers(1, 3 * CFG.max_seq_len)) if n is None else n
+    return rng.integers(1, CFG.n_items + 1, n)
+
+
+def test_stats_schema_matches_reference(params):
+    ref = jengine.RetrievalEngine(lambda s, k: None, seq_len=4,
+                                  jit_serve=False).stats()
+    eng = _engine(params)
+    assert set(eng.stats()) == set(ref)
+    assert eng.stats()["mRT_ms"] is None and eng.stats()["count"] == 0.0
+    rng = np.random.default_rng(0)
+    for i in range(5):
+        eng.submit(Request(i, _history(rng)))
+    assert len(eng.drain()) == 5
+    st = eng.stats()
+    assert set(st) == set(ref)
+    assert st["count"] == 5.0 and st["mRT_ms"] > 0 and st["p99_ms"] > 0
+    assert all(isinstance(v, float) for v in st.values())
+
+
+def test_bucketing_and_batch_k_match_reference(params):
+    for n in range(1, 80):
+        assert MicroBatcher.bucket(n, 64) == jengine.MicroBatcher.bucket(n, 64)
+    eng = _engine(params, k=10)
+    ref = jengine.RetrievalEngine(lambda s, k: None, seq_len=4, k=10,
+                                  max_k=eng.max_k, jit_serve=False)
+    assert eng.max_k == 1000          # min(n_items, fused kernel tile)
+    for ks in ([1], [10], [11, 3], [0, 17], [5000], [-3, 999]):
+        assert eng.batch_k(ks) == ref.batch_k(ks)
+
+
+def test_variants_memoised_per_bucket_and_k(params):
+    eng = _engine(params, max_batch=8)
+    rng = np.random.default_rng(1)
+    for size, k in ((3, 10), (4, 10), (5, 10), (3, 20), (3, 20), (8, 10)):
+        for i in range(size):
+            eng.submit(Request(i, _history(rng), k=k))
+        out = eng.drain()
+        assert [len(r.items) for r in out] == [k] * size
+    # (4,16), (8,16), (4,32): three variants.
+    assert eng.stats()["n_compiles"] == 3.0
+
+
+def test_left_padding_and_results_match_serve_topk(params):
+    eng = _engine(params, k=5, max_batch=4)
+    rng = np.random.default_rng(2)
+    hists = [_history(rng, n) for n in (1, 7, CFG.max_seq_len, 40)]
+    results, prep = eng.prepare([Request(i, h, k=5)
+                                   for i, h in enumerate(hists)])
+    assert results == []
+    want = np.zeros((4, CFG.max_seq_len), np.int32)
+    for i, h in enumerate(hists):
+        tail = h[-CFG.max_seq_len:]
+        want[i, -len(tail):] = tail
+    np.testing.assert_array_equal(prep.seqs.numpy(), want)
+    got = eng.complete(eng.launch(prep))
+    ids, vals = seqrec.serve_topk(params, torch.from_numpy(want), CFG, k=8,
+                                  method="pqtopk_fused")
+    for i, r in enumerate(got):
+        np.testing.assert_array_equal(r.items, ids[i, :5].numpy())
+        np.testing.assert_array_equal(r.scores, vals[i, :5].numpy())
+
+
+@pytest.mark.parametrize("fail_repeats,shed", [(1, False), (3, True)])
+def test_fail_at_retries_then_sheds(params, fail_repeats, shed):
+    faults = ServeFaultInjector(fail_at_batches=(1,),
+                                fail_repeats=fail_repeats)
+    eng = _engine(params, max_batch=4, faults=faults, max_retries=2,
+                  retry_backoff_ms=0.0)
+    rng = np.random.default_rng(3)
+    for i in range(12):
+        eng.submit(Request(i, _history(rng)))
+    out = eng.drain()
+    assert len(out) == 12
+    st = eng.stats()
+    assert st["retried"] == min(fail_repeats, 2)
+    assert st["shed"] == (4.0 if shed else 0.0)
+    assert [r.shed for r in out] == [False] * 4 + [shed] * 4 + [False] * 4
+    assert all(len(r.items) == (0 if r.shed else 10) for r in out)
+
+
+def test_expired_requests_shed_before_dispatch(params):
+    eng = _engine(params)
+    rng = np.random.default_rng(4)
+    eng.submit(Request(0, _history(rng), arrival=time.monotonic() - 1.0,
+                       deadline_ms=10.0))
+    eng.submit(Request(1, _history(rng)))
+    out = {r.request_id: r for r in eng.drain()}
+    assert out[0].shed and out[0].timed_out and len(out[0].items) == 0
+    assert not out[1].shed and len(out[1].items) == 10
+    assert eng.stats()["timeouts"] == 1.0
+
+
+def test_cuda_entry_points_refuse_without_a_card(params, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _engine(params, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.main(["--reduced", "--requests", "2"])
+
+
+def test_serve_cli_prints_summary(capsys):
+    results = tserve.main(["--reduced", "--requests", "20", "--max-batch",
+                           "8", "--device", "cpu", "--fail-at", "3",
+                           "--fail-repeats", "3", "--method", "pqtopk"])
+    out = capsys.readouterr().out
+    assert "served 20 requests" in out and "method=pqtopk" in out
+    assert "mRT=" in out and "p99=" in out and "n_compiles=" in out
+    assert "shed=8" in out          # batch 3 = the 2nd of the timed stream
+    assert sum(r.shed for r in results) == 8

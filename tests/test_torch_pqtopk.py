@@ -1,0 +1,130 @@
+"""The port's PQTopK kernel wrappers against the JAX reference.
+
+On the CPU the wrappers run the kernels' plain versions; the reference runs
+its Pallas kernels in interpret mode, as ``tests/test_pqtopk_fused.py``
+does.  Scores, winners and ids must agree bit for bit.  The CUDA kernels
+themselves are held against the plain versions in
+``test_torch_kernels_cuda.py``, on a card."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.pqtopk import kernel as jkernel, ops as jops
+from repro_torch.kernels.pqtopk import kernel as tkernel, ops as tops
+from repro_torch.kernels.pqtopk import ref as tref
+
+
+def _inputs(n, m, b, bq, code_dtype="int32", seed=0):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, b, (n, m)).astype(code_dtype)
+    s = rng.standard_normal((bq, m, b)).astype(np.float32)
+    return codes, s
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _plant_ties(codes, s):
+    """Rows 3, N/2 and N-1 share row 3's codes (equal scores), and query 0
+    scores them highest, so the winners tie across tiles."""
+    codes = codes.copy()
+    codes[[codes.shape[0] // 2, -1]] = codes[3]
+    s = s.copy()
+    s[0, np.arange(codes.shape[1]), codes[3].astype(np.int64)] = 50.0
+    return codes, s
+
+
+@pytest.mark.parametrize("code_dtype,n,m,b", [
+    ("int8", 777, 8, 128), ("uint8", 1001, 3, 100), ("uint16", 1999, 8, 512),
+    ("int32", 513, 3, 100)])
+def test_pq_scores_bitexact(code_dtype, n, m, b):
+    codes, s = _inputs(n, m, b, 5, code_dtype)
+    ref = np.asarray(jops.pq_scores(jnp.asarray(codes), jnp.asarray(s),
+                                    tile=256, interpret=True))
+    got = tops.pq_scores(_t(codes), _t(s)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(tref.pq_scores(_t(codes), _t(s)).numpy(),
+                                  ref)
+
+
+@pytest.mark.parametrize("code_dtype,n,m,b,k,tile", [
+    ("uint16", 1999, 8, 512, 10, 256), ("uint8", 1001, 3, 100, 16, 128),
+    ("int32", 300, 4, 16, 7, 2048)])
+def test_pq_topk_bitexact_with_ties(code_dtype, n, m, b, k, tile):
+    codes, s = _plant_ties(*_inputs(n, m, b, 3, code_dtype, seed=1))
+    rv, ri = (np.asarray(a) for a in jops.pq_topk(
+        jnp.asarray(codes), jnp.asarray(s), k, tile=tile, interpret=True))
+    v, i = tops.pq_topk(_t(codes), _t(s), k, tile=tile)
+    np.testing.assert_array_equal(v.numpy(), rv)
+    np.testing.assert_array_equal(i.numpy(), ri)
+    assert list(ri[0, :3]) == [3, n // 2, n - 1]       # lowest id first
+    pv, pi = tref.pq_topk(_t(codes), _t(s), k)
+    np.testing.assert_array_equal(pv.numpy(), rv)
+    np.testing.assert_array_equal(pi.numpy(), ri)
+
+
+def test_pq_topk_slots_match_fused_call_with_sentinels():
+    """Slot level, as the fused kernel writes it: a hand-made tile list with
+    ``-1`` sentinel slots and the all-padding tile past the catalogue."""
+    n, m, b, k, tile, bt = 1000, 4, 64, 5, 128, 8
+    codes, s = _plant_ties(*_inputs(n, m, b, 6, "uint8", seed=2))
+    tile_idx = np.array([0, 5, -1, 7, 3, tops.sentinel_tile(n, tile), -1],
+                        np.int32)
+    jc = jops._pad_codes(jnp.asarray(codes), tile, sentinel=True)
+    js = jops._pad_batch(jnp.asarray(s), bt)
+    rv, ri = (np.asarray(a)[:6] for a in jkernel.pq_topk_fused_call(
+        jc, js, k, tile_idx=jnp.asarray(tile_idx), n_items=n, tile=tile,
+        batch_tile=bt, interpret=True))
+    v, i = tops.pq_topk_slots(_t(codes), _t(s), k, _t(tile_idx), n_items=n,
+                              tile=tile)
+    np.testing.assert_array_equal(v.numpy(), rv)
+    np.testing.assert_array_equal(i.numpy(), ri)
+    assert np.all(rv[:, 2] == -np.inf) and np.all(ri[:, 2] == n)
+    assert np.all(rv[:, 5] == -np.inf)
+    mv, mi = tops._merge_slot_winners(v, i, k)
+    jv, ji = jops._merge_slot_winners(jnp.asarray(rv), jnp.asarray(ri), k)
+    np.testing.assert_array_equal(mv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(mi.numpy(), np.asarray(ji))
+
+
+def test_tile_rule_and_padding_helpers():
+    for n in (1, 127, 128, 1000, 2048, 5000, 1_271_638):
+        for tile in (128, 2048):
+            assert tops.n_tiles(n, tile) == jops.n_tiles(n, tile)
+            assert tops.sentinel_tile(n, tile) == jops.sentinel_tile(n, tile)
+    for bq in (1, 7, 8, 64, 200):
+        assert tops.effective_batch_tile(bq) == jops.effective_batch_tile(bq)
+    codes, s = _inputs(300, 3, 16, 5, "uint16")
+    for sentinel in (False, True):
+        np.testing.assert_array_equal(
+            tops._pad_codes(_t(codes), 128, sentinel=sentinel).numpy(),
+            np.asarray(jops._pad_codes(jnp.asarray(codes), 128,
+                                       sentinel=sentinel)))
+    np.testing.assert_array_equal(tops._pad_batch(_t(s), 8).numpy(),
+                                  np.asarray(jops._pad_batch(jnp.asarray(s),
+                                                             8)))
+    with pytest.raises(ValueError, match="k=129 > tile=128"):
+        tops.pq_topk(_t(codes[:100]), _t(s), 129)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    codes, s = _inputs(100, 3, 16, 2)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tkernel.pq_scores_cuda(_t(codes), _t(s))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tkernel.pq_topk_fused_cuda(_t(codes), _t(s), 3,
+                                   torch.zeros(1, dtype=torch.int32),
+                                   n_items=100, tile=128)
+    assert tkernel.pq_scores_cuda.launches == 0
+    assert tkernel.pq_topk_fused_cuda.launches == 0
+
+
+def test_build_line_targets_hopper_without_fast_math(tmp_path):
+    cmd = tkernel.nvcc_command(tmp_path / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-O3" in cmd and "-shared" in cmd
+    assert not any("fast" in a or "ftz" in a for a in cmd)
+    assert tkernel.SOURCE.exists()
+    assert str(tkernel.SOURCE) == cmd[-1]
