@@ -4,14 +4,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch``, holds each against
-its plain PyTorch version on the card, then serves the full-width
-SASRec-RecJPQ model (N=1,271,638 items, d=512, m=8, b=512, uint16 codes;
-random weights from a fixed seed) through ``RetrievalEngine`` with the
-fused kernel, and checks every batch against the plain ``pqtopk`` route.
-Prints the card's name and power limit, kernel and per-method timings, a
-JSON line of kernel records, and last ``{"ok": true, "device": ...}``.
-Any failed phase raises and exits non-zero; without a CUDA device it exits
-non-zero before doing anything.
+its plain PyTorch version on the card (the fused kernel with its 1D tile
+list, ``-1`` sentinel slots and 2D (batch tile, slot) table), runs the
+pruned cascade on a full-width tile-coherent catalogue (both bound
+backends, grouping off and on, both seed policies) against the exhaustive
+fused route, then serves the full-width SASRec-RecJPQ model (N=1,271,638
+items, d=512, m=8, b=512, uint16 codes; random weights from a fixed seed)
+through ``RetrievalEngine`` with the fused kernel, the scores kernel, the
+plain route and the pruned cascade (batch-any and grouped), checking every
+batch against the plain ``pqtopk`` and fused routes and each path's kernel
+launches.  Prints the card's name and power limit, kernel and per-method
+timings, a JSON line of kernel records, and last ``{"ok": true, "device":
+...}``.  Any failed phase raises and exits non-zero; without a CUDA device
+it exits non-zero before doing anything.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -35,6 +41,7 @@ SM_CLOCK_HZ = 1.98e9
 N_REQUESTS = 6400                  # 100 full batches of 64
 MAX_BATCH = 64
 K = 10
+K_KERNEL = 16                      # the engine serves k=10 at its bucket 16
 
 
 def card_line() -> str:
@@ -87,54 +94,272 @@ def pq_inputs(n, m, b, bq, dtype, seed, dev):
     return codes.to(dtype).to(dev), s.to(dev)
 
 
+def compare(what, got, want):
+    """Kernel outputs (values first, then ids) against their plain
+    version, bit-exact; returns the max abs value error over entries
+    finite in both."""
+    import torch
+    gv, wv = got[0], want[0]
+    both = torch.isfinite(gv) & torch.isfinite(wv)
+    err = torch.where(both, gv - wv, 0.0).abs().max().item()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: {int((gv != wv).sum())} values and "
+                             f"{sum(int((g != w).sum()) for g, w in zip(got[1:], want[1:]))}"
+                             " ids differ")
+    return err
+
+
+def table_2d(n_tiles, n_rows, n_slots, seed):
+    """A 2D tile table whose rows differ: ascending tiles, then ``-1``
+    tails of different lengths; the last row is all ``-1``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    table = np.full((n_rows, n_slots), -1, np.int32)
+    for j in range(n_rows - 1):
+        live = max(1, n_slots - j)
+        table[j, :live] = np.sort(rng.choice(n_tiles, live, replace=False))
+    return torch.from_numpy(table)
+
+
 def check_kernels(dev):
     """Each kernel against its plain version, bit-exact, on several code
-    dtypes and shapes.  Returns the max abs error seen per kernel."""
+    dtypes and shapes; the fused kernel on the identity list, lists with
+    ``-1`` sentinels, and 2D tables at batch_tile 8 and 16.  Returns the
+    max abs error seen per kernel."""
     import torch
     from repro_torch.kernels.pqtopk import kernel, ops, ref
-    err = {"pq_scores": 0.0, "pq_topk_fused": 0.0}
+    err = {"pq_scores": 0.0, "pq_topk_fused": 0.0, "pq_topk_fused_2d": 0.0}
     cases = [(torch.int8, 100_003, 8, 128), (torch.uint8, 100_003, 8, 256),
              (torch.uint16, 100_003, 8, 512), (torch.int32, 100_003, 8, 512),
              (torch.uint8, 4_097, 3, 100), (torch.int32, 50_001, 3, 100),
              (torch.uint16, 1_271_639, 8, 512)]
     for i, (dtype, n, m, b) in enumerate(cases):
-        bq = 64 if n > 1_000_000 else 5
+        full = n > 1_000_000
+        bq = 64 if full else 5
         codes, s = pq_inputs(n, m, b, bq, dtype, seed=i, dev=dev)
-        got = kernel.pq_scores_cuda(codes, s)
-        want = ref.pq_scores(codes, s)
-        e = (got - want).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError(f"pq_scores {dtype} N={n} m={m} b={b}: "
-                                 f"max abs err {e}")
-        err["pq_scores"] = max(err["pq_scores"], e)
+        err["pq_scores"] = max(err["pq_scores"], compare(
+            f"pq_scores {dtype} N={n} m={m} b={b}",
+            (kernel.pq_scores_cuda(codes, s),), (ref.pq_scores(codes, s),)))
         tile = min(2048, -(-n // 128) * 128)
         nt = ops.n_tiles(n, tile)
         lists = [torch.arange(nt, dtype=torch.int32)]
-        if n < 1_000_000:       # sentinels, repeats, the padding tile
+        if not full:            # sentinels, repeats, the padding tile
             lists.append(torch.tensor([-1, nt - 1, 0, -1, nt, 0, -1],
                                       dtype=torch.int32))
         for idx in lists:
             for k in (1, 16, 100):
                 idx_d = idx.to(dev)
-                gv, gi = kernel.pq_topk_fused_cuda(codes, s, k, idx_d,
-                                                   n_items=n, tile=tile)
-                wv, wi = ref.pq_topk_slots(codes, s, k, idx_d, n_items=n,
-                                           tile=tile)
-                both = torch.isfinite(gv) & torch.isfinite(wv)
-                e = torch.where(both, gv - wv, 0.0).abs().max().item()
-                err["pq_topk_fused"] = max(err["pq_topk_fused"], e)
-                if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
-                    bad = gv != wv
-                    raise AssertionError(
-                        f"pq_topk_fused {dtype} N={n} m={m} b={b} k={k}: "
-                        f"{int(bad.sum())} values and "
-                        f"{int((gi != wi).sum())} ids differ")
+                err["pq_topk_fused"] = max(err["pq_topk_fused"], compare(
+                    f"pq_topk_fused {dtype} N={n} m={m} b={b} k={k}",
+                    kernel.pq_topk_fused_cuda(codes, s, k, idx_d, n_items=n,
+                                              tile=tile),
+                    ref.pq_topk_slots(codes, s, k, idx_d, n_items=n,
+                                      tile=tile)))
+        # 2D tables: rows that differ with -1 tails, a ragged last batch
+        # tile (small cases), one case at an odd tile width.
+        tile2 = 1000 if i == 4 else tile
+        nt2 = ops.n_tiles(n, tile2)
+        for bt in ((8,) if full else (8, 16)):
+            bq2 = 64 if full else 2 * bt + 5
+            _, s2 = pq_inputs(n, m, b, bq2, dtype, seed=100 + i, dev=dev)
+            rows = -(-bq2 // bt)
+            table = table_2d(nt2, rows, min(nt2, 40 if full else 6),
+                             seed=bt + i).to(dev)
+            for k in (1, 16, 100):
+                err["pq_topk_fused_2d"] = max(err["pq_topk_fused_2d"], compare(
+                    f"pq_topk_fused 2D {dtype} N={n} bt={bt} k={k}",
+                    kernel.pq_topk_fused_cuda(codes, s2, k, table, n_items=n,
+                                              tile=tile2, batch_tile=bt),
+                    ref.pq_topk_slots(codes, s2, k, table, n_items=n,
+                                      tile=tile2, batch_tile=bt)))
         fv, fi = ops.pq_topk(codes, s, 10)
         if fi[0, :3].tolist() != [3, n // 2, n - 1]:
             raise AssertionError(f"tie order {fi[0, :3].tolist()}")
         torch.cuda.synchronize()
-        print(f"kernel check: {dtype} N={n} m={m} b={b} B={bq}: bit-exact")
+        print(f"kernel check: {dtype} N={n} m={m} b={b} B={bq}: bit-exact "
+              f"(2D tables at tile {tile2})")
     return err
+
+
+def clustered_codes(n, m, b, grain=2048, width=8, seed=0):
+    """A tile-coherent catalogue, after ``examples/billion_item_sim.py``'s
+    ``make_clustered_codes``: every ``grain`` consecutive items draw their
+    codes from one band [base, base + width), bases rising across groups."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n_groups = -(-n // grain)
+    span = max(1, b - width)
+    base = np.minimum((np.arange(n_groups, dtype=np.int64) * span)
+                      // max(1, n_groups - 1), span - 1)
+    codes = np.repeat(base, grain)[:n, None] + rng.integers(0, width, (n, m))
+    return codes.astype(np.uint16)
+
+
+def window_scores(bq, m, b, seed, spread, power, boost=6.0):
+    """S with skewed noise (``|g|**power``, sign kept) and a boosted code
+    window per query, after ``tests/test_perquery_pruning.py``: query q's
+    window starts at ``q * spread * b / B``.  ``spread=0.25, power=3``: the
+    windows tile the first quarter of the codebook (mixed interests: each
+    query's survivors are its own); ``spread=0, power=2``: every query
+    boosts the same head window (shared interest)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((bq, m, b))
+    g = np.sign(g) * np.abs(g) ** power
+    for q in range(bq):
+        w = int(q * spread * b) // bq
+        g[q, :, max(0, w - 1):w + 3] += boost
+    return g.astype(np.float32)
+
+
+def tile_items(n, tile, tiles):
+    """Real items in each of ``tiles`` (the last tile is ragged)."""
+    return [min(tile, n - t * tile) for t in tiles if t >= 0]
+
+
+def skewed_cascade(dev, n_sms, n=1_271_638):
+    """The pruned cascade at full width on a tile-coherent catalogue, every
+    configuration against the exhaustive fused route; then the time split
+    of one batch and the compacted (1D with sentinels) and 2D kernel forms
+    against their plain versions and bounds.  Returns the two kernel
+    forms' measurements."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pruning
+    from repro_torch.kernels.pqtopk import kernel, ops, ref
+    m, b, bq = 8, 512, MAX_BATCH
+    codes = torch.from_numpy(clustered_codes(n, m, b)).to(dev)
+    states = {be: pruning.build_pruned_state(codes, b, backend=be)
+              for be in pruning.BOUND_BACKENDS}
+    # (batch, score shape, grouping modes run on it)
+    batches = {"mixed": (dict(spread=0.25, power=3), (False, True)),
+               "shared": (dict(spread=0.0, power=2), (False,))}
+    below_exhaustive, n_configs, scores = [], 0, {}
+    for batch, (shape, modes) in batches.items():
+        s = torch.from_numpy(window_scores(bq, m, b, 0, **shape)).to(dev)
+        scores[batch] = s
+        calib = [torch.from_numpy(window_scores(bq, m, b, i, **shape)).to(dev)
+                 for i in (1, 2, 3)] + [s]
+        ev, ei = ops.pq_topk(codes, s, K_KERNEL)
+        for backend, state in states.items():
+            for grouped in modes:
+                for policy in ("greedy", "adaptive"):
+                    seed_kw = dict(seed_policy=policy)
+                    counts = [int(pruning.survival_count_grouped(
+                        codes, c, K_KERNEL, state, n_groups=8, **seed_kw)
+                        if grouped else pruning.survival_count(
+                            codes, c, K_KERNEL, state, **seed_kw))
+                        for c in calib]
+                    ladder = pruning.calibrate_ladder(
+                        counts, state.n_tiles, K_KERNEL, state.tile)
+                    v, i, st = pruning.cascade_topk_ingraph(
+                        codes, s, K_KERNEL, state, ladder=ladder,
+                        query_grouping=grouped, n_groups=8,
+                        return_stats=True, **seed_kw)
+                    what = (f"cascade {batch} {backend} grouping="
+                            f"{'on' if grouped else 'off'} {policy}")
+                    if not (torch.equal(v, ev) and torch.equal(i, ei)):
+                        raise AssertionError(f"{what}: differs from pq_topk")
+                    n_configs += 1
+                    if st["rung_hit"] < st["n_rungs"] - 1:
+                        below_exhaustive.append(what)
+                    print(f"{what}: ladder={ladder} rung_hit="
+                          f"{st['rung_hit']} survival_fraction="
+                          f"{float(st['survival_fraction']):.4f} n_survived="
+                          f"{st['n_survived']} n_groups={st['n_groups']} "
+                          f"max_group={st['max_group_survived']} "
+                          f"pairs_scored/pairs_union={st['pairs_scored']}/"
+                          f"{st['pairs_union']} n_seed_used="
+                          f"{st['n_seed_used']}: bit-identical to pq_topk")
+    if not below_exhaustive:
+        raise AssertionError("no skewed configuration took a rung below the "
+                             "exhaustive one")
+    print(f"cascade: {len(below_exhaustive)} of {n_configs} configurations "
+          "ended below the exhaustive rung, every result exact")
+
+    # ---- time split of one batch (bitmask, greedy), both routes ------
+    state = states["bitmask"]
+    tile = state.tile
+    forms = {}
+    for grouped in (False, True):
+        # Batch-any on the shared-interest batch, grouped on the mixed one.
+        s = scores["mixed" if grouped else "shared"]
+        bounds = pruning.tile_bounds(state, s)
+        t_bounds = time_ms(lambda: pruning.tile_bounds(state, s), 10)
+        if grouped:
+            theta_fn = lambda: pruning.theta_seed_perquery(
+                codes, s, bounds, K_KERNEL, tile=tile)
+            theta = theta_fn()[0]
+            mask = pruning.survival_mask_perquery(bounds, theta)
+            bt = ops.group_batch_tile(bq, 8)
+            compact_fn = lambda: pruning.group_and_compact(
+                mask, n_groups=8, batch_tile=bt)
+            perm, _, slots, counts = compact_fn()
+            s_k = s[perm].contiguous()
+        else:
+            theta_fn = lambda: pruning.theta_seed_ingraph(
+                codes, s, bounds, K_KERNEL, tile=tile)
+            theta = theta_fn()[0]
+            compact_fn = lambda: pruning.compact_mask(
+                pruning.survival_mask(bounds, theta))
+            slots, counts = compact_fn()
+            bt, s_k = 0, s
+        host = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cl = counts.reshape(-1).tolist()
+            host.append((time.perf_counter() - t0) * 1e3)
+        rung = max(cl)
+        budget = 1 << (max(rung, 1) - 1).bit_length()     # a pow2 rung
+        table = slots[..., :min(budget, state.n_tiles)].contiguous()
+        kern = lambda: kernel.pq_topk_fused_cuda(
+            codes, s_k, K_KERNEL, table, n_items=n, tile=tile, batch_tile=bt)
+        tv, ti = kern()
+        whole = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pruning.cascade_topk_ingraph(codes, s, K_KERNEL, state,
+                                         ladder=(budget,),
+                                         query_grouping=grouped, n_groups=8)
+            torch.cuda.synchronize()
+            whole.append((time.perf_counter() - t0) * 1e3)
+        split = {"bounds": t_bounds, "theta": time_ms(theta_fn, 10),
+                 "grouping+compaction" if grouped else "compaction":
+                     time_ms(compact_fn, 10),
+                 "host read": statistics.median(host),
+                 "kernel": time_ms(kern, 20),
+                 "merge": time_ms(lambda: ops._merge_slot_winners(
+                     tv, ti, K_KERNEL), 20)}
+        name = "pq_topk_fused_2d" if grouped else "pq_topk_fused_sentinel"
+        print(f"split {'grouped, mixed' if grouped else 'batch-any, shared'}"
+              f" batch (bitmask, greedy, B={bq}, {table.shape[-1]} slots, "
+              "max survivors "
+              f"{rung}): " + ", ".join(f"{k} {v:.4f}ms"
+                                       for k, v in split.items())
+              + f"; whole cascade {statistics.median(whole):.4f}ms host clock")
+        # Work this table needs: (query, item) pairs of scored slots.
+        rows = table.reshape(-1, table.shape[-1]).tolist()
+        row_q = [min(bt, bq - j * bt) for j in range(len(rows))] \
+            if grouped else [bq]
+        pair_items = sum(q * sum(tile_items(n, tile, r))
+                         for q, r in zip(row_q, rows))
+        scored = {t for r in rows for t in r if t >= 0}
+        nbytes = (sum(tile_items(n, tile, scored)) * m * 2
+                  + bq * m * b * 4 + table.numel() * 4
+                  + bq * table.shape[-1] * K_KERNEL * 8)
+        bnd, by, terms = bound_ms(nbytes, pair_items * (m - 1),
+                                  pair_items * m, n_sms)
+        plain = time_ms(lambda: ref.pq_topk_slots(
+            codes, s_k, K_KERNEL, table, n_items=n, tile=tile,
+            batch_tile=bt), 3)
+        print(f"bound {name}: {terms} ms ({pair_items} scored query-item "
+              f"pairs)")
+        forms[name] = {"ms": split["kernel"], "plain_ms": plain,
+                       "bound_ms": bnd, "bound_by": by}
+    return forms
 
 
 def request_stream(cfg, n=N_REQUESTS, seed=0):
@@ -159,6 +384,91 @@ def serve(engine, histories):
     return out
 
 
+def serve_paths(params, cfg, dev):
+    """Serve the same requests through an engine per path (the fused and
+    scores kernels, the plain route, the pruned cascade batch-any and
+    grouped), each with the launch counts set to 0 just before and read
+    just after; check the counts and that every batch agrees with the
+    plain or fused route.  Returns each path's launch counts."""
+    import numpy as np
+    from repro_torch.kernels.pqtopk import kernel
+    from repro_torch.serving.engine import RetrievalEngine
+    grouped_cfg = replace(cfg, pq=replace(cfg.pq, query_grouping=True))
+    # (name, method, config): the pruned engines calibrate their ladders
+    # at build time.
+    paths = [("pqtopk_fused", "pqtopk_fused", cfg),
+             ("pqtopk_kernel", "pqtopk_kernel", cfg),
+             ("pqtopk", "pqtopk", cfg),
+             ("pqtopk_pruned", "pqtopk_pruned", cfg),
+             ("pqtopk_pruned_grouped", "pqtopk_pruned", grouped_cfg)]
+    engines = {name: RetrievalEngine.for_seqrec(params, c, k=K,
+                                                max_batch=MAX_BATCH,
+                                                method=method, device=dev)
+               for name, method, c in paths}
+    for eng in engines.values():                 # warm both buckets
+        serve(eng, request_stream(cfg, MAX_BATCH + 1, seed=1))
+        eng.latencies_ms.clear()
+        eng.rung_counts.clear()
+
+    # Each path is served with the counts at 0 and read just after; each
+    # must launch its own kernels once per batch and the others not at all.
+    n_batches = -(-N_REQUESTS // MAX_BATCH)
+    expected = {"pqtopk_fused": {"pq_topk_fused": n_batches},
+                "pqtopk_kernel": {"pq_scores": n_batches},
+                "pqtopk": {},
+                "pqtopk_pruned": {"pq_topk_fused": n_batches,
+                                  "pq_scores": n_batches},
+                "pqtopk_pruned_grouped": {"pq_topk_fused_2d": n_batches}}
+    outs, launches = {}, {}
+    for name, _, _ in paths:
+        kernel.pq_scores_cuda.launches = 0
+        kernel.pq_topk_fused_cuda.launches = 0
+        kernel.pq_topk_fused_cuda.launches_2d = 0
+        outs[name] = serve(engines[name], request_stream(cfg))
+        got = {"pq_topk_fused": kernel.pq_topk_fused_cuda.launches,
+               "pq_topk_fused_2d": kernel.pq_topk_fused_cuda.launches_2d,
+               "pq_scores": kernel.pq_scores_cuda.launches}
+        want = {k: expected[name].get(k, 0) for k in got}
+        print(f"path {name}: launches {got}")
+        if got != want:
+            raise AssertionError(f"path {name} launched {got}, expected "
+                                 f"{want}")
+        launches[name] = got
+    out_plain = outs["pqtopk"]
+    for rid, want in out_plain.items():
+        for name in ("pqtopk_fused", "pqtopk_kernel"):
+            got = outs[name][rid]
+            if got.shed or not (np.array_equal(got.items, want.items)
+                                and np.array_equal(got.scores,
+                                                   want.scores)):
+                raise AssertionError(f"{name} request {rid} differs from "
+                                     "pqtopk")
+        for name in ("pqtopk_pruned", "pqtopk_pruned_grouped"):
+            got, fused = outs[name][rid], outs["pqtopk_fused"][rid]
+            if got.shed or got.degraded or not (
+                    np.array_equal(got.items, fused.items)
+                    and np.array_equal(got.scores, fused.scores)):
+                raise AssertionError(f"{name} request {rid} differs from "
+                                     "pqtopk_fused")
+        if want.items.shape != (K,) or not np.all(np.isfinite(want.scores)) \
+                or want.items.min() < 0 or want.items.max() > cfg.n_items:
+            raise AssertionError(f"request {rid}: bad result {want}")
+    for name, eng in engines.items():
+        st = eng.stats()
+        extra = (f" ladder={st['ladder']} rung_hit_fraction="
+                 f"{st['rung_hit_fraction']:.4f} rung_counts="
+                 f"{st['rung_counts']}" if "ladder" in st else "")
+        print(f"engine {name}: served {int(st['count'])} mRT="
+              f"{st['mRT_ms']:.3f}ms p99={st['p99_ms']:.3f}ms "
+              f"n_compiles={int(st['n_compiles'])} shed={int(st['shed'])}"
+              + extra)
+    print(f"engine: {N_REQUESTS} requests in {n_batches} batches per path; "
+          "pqtopk_fused and pqtopk_kernel bit-identical to pqtopk, both "
+          "pqtopk_pruned engines bit-identical to pqtopk_fused; p99 is near "
+          "the slowest batch (a request's latency is its batch's)")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -172,7 +482,6 @@ def main() -> int:
     from repro_torch.core.pq import widen
     from repro_torch.kernels.pqtopk import kernel, ops, ref
     from repro_torch.models import seqrec
-    from repro_torch.serving.engine import RetrievalEngine
 
     dev = torch.device("cuda")
     t_start = time.monotonic()
@@ -194,6 +503,8 @@ def main() -> int:
             print(f"ptxas {name}<uint16, m=8>: {line.split(':', 1)[1].strip()}")
 
     max_err = check_kernels(dev)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    forms = skewed_cascade(dev, n_sms)
 
     # ---- full-width model, served through the engine ----------------
     cfg = get_config("sasrec-recjpq").model
@@ -204,57 +515,9 @@ def main() -> int:
     print(f"init: {cfg.name} N={cfg.n_items} d={cfg.d_model} m={cfg.pq.m} "
           f"b={cfg.pq.b} codes={params['item_emb']['codes'].dtype} in "
           f"{time.monotonic() - t0:.1f}s")
-    engines = {m: RetrievalEngine.for_seqrec(params, cfg, k=K,
-                                             max_batch=MAX_BATCH, method=m,
-                                             device=dev)
-               for m in ("pqtopk_fused", "pqtopk_kernel", "pqtopk")}
-    for eng in engines.values():                 # warm both buckets
-        serve(eng, request_stream(cfg, MAX_BATCH + 1, seed=1))
-        eng.latencies_ms.clear()
+    launches = serve_paths(params, cfg, dev)
 
-    # Each path is served with the counts at 0 and read just after; each
-    # must launch its own kernel once per batch and the other not at all.
-    n_batches = -(-N_REQUESTS // MAX_BATCH)
-    outs, launches = {}, {}
-    for method, own in (("pqtopk_fused", "pq_topk_fused"),
-                        ("pqtopk_kernel", "pq_scores"), ("pqtopk", None)):
-        kernel.pq_scores_cuda.launches = 0
-        kernel.pq_topk_fused_cuda.launches = 0
-        outs[method] = serve(engines[method], request_stream(cfg))
-        got = {"pq_topk_fused": kernel.pq_topk_fused_cuda.launches,
-               "pq_scores": kernel.pq_scores_cuda.launches}
-        want = {name: n_batches if name == own else 0 for name in got}
-        print(f"path {method}: launches {got}")
-        if got != want:
-            raise AssertionError(f"path {method} launched {got}, expected "
-                                 f"{want}")
-        if own:
-            launches[own] = got[own]
-    out_fused, out_kern, out_plain = (outs[m] for m in (
-        "pqtopk_fused", "pqtopk_kernel", "pqtopk"))
-    for rid, want in out_plain.items():
-        for name, out in (("pqtopk_fused", out_fused),
-                          ("pqtopk_kernel", out_kern)):
-            got = out[rid]
-            if got.shed or not (np.array_equal(got.items, want.items)
-                                and np.array_equal(got.scores,
-                                                   want.scores)):
-                raise AssertionError(f"{name} request {rid} differs from "
-                                     "pqtopk")
-        if want.items.shape != (K,) or not np.all(np.isfinite(want.scores)) \
-                or want.items.min() < 0 or want.items.max() > cfg.n_items:
-            raise AssertionError(f"request {rid}: bad result {want}")
-    for name, eng in engines.items():
-        st = eng.stats()
-        print(f"engine {name}: served {int(st['count'])} mRT="
-              f"{st['mRT_ms']:.3f}ms p99={st['p99_ms']:.3f}ms "
-              f"n_compiles={int(st['n_compiles'])} shed={int(st['shed'])}")
-    print(f"engine: {N_REQUESTS} requests in {n_batches} batches, every "
-          "batch of pqtopk_fused and pqtopk_kernel bit-identical to pqtopk; "
-          "p99 is near the slowest batch (a request's latency is its "
-          "batch's)")
-
-    # ---- every flat method once, on one full batch -------------------
+    # ---- every method once, on one full batch ------------------------
     rng = np.random.default_rng(2)
     seqs = torch.from_numpy(rng.integers(
         1, cfg.n_items + 1, (MAX_BATCH, cfg.max_seq_len)).astype(np.int32)
@@ -266,14 +529,16 @@ def main() -> int:
             lambda: seqrec.sequence_embedding(params, seqs, cfg), 5)
         print(f"backbone: B={MAX_BATCH} S={cfg.max_seq_len} {backbone_ms:.3f}ms")
         results, method_ms = {}, {}
-        for method in ("pqtopk", "pqtopk_kernel", "pqtopk_fused", "recjpq",
-                       "pqtopk_onehot", "dense", "pqtopk_approx"):
-            fn = lambda: retrieval_head.top_items(head, phi, K, method=method)
+        for method in ("pqtopk", "pqtopk_kernel", "pqtopk_fused",
+                       "pqtopk_pruned", "recjpq", "pqtopk_onehot", "dense",
+                       "pqtopk_approx"):
+            fn = lambda: retrieval_head.top_items(head, phi, K, method=method,
+                                                  pq_cfg=cfg.pq)
             results[method] = fn()
             method_ms[method] = time_ms(fn, 3)
             print(f"method {method}: scoring+top-k {method_ms[method]:.3f}ms")
         ev, ei = results["pqtopk"]
-        for method in ("pqtopk_kernel", "pqtopk_fused"):
+        for method in ("pqtopk_kernel", "pqtopk_fused", "pqtopk_pruned"):
             v, i = results[method]
             if not (torch.equal(v, ev) and torch.equal(i, ei)):
                 raise AssertionError(f"{method} differs from pqtopk")
@@ -285,8 +550,9 @@ def main() -> int:
         av, _ = results["pqtopk_approx"]
         if not (torch.equal(av[:, 0], ev[:, 0]) and torch.all(av <= ev[:, :1])):
             raise AssertionError("pqtopk_approx: top-1 differs from exact")
-        print("methods: pqtopk, pqtopk_kernel, pqtopk_fused bit-identical; "
-              "recjpq, pqtopk_onehot, dense within rtol=atol=1e-5")
+        print("methods: pqtopk, pqtopk_kernel, pqtopk_fused, pqtopk_pruned "
+              "bit-identical; recjpq, pqtopk_onehot, dense within "
+              "rtol=atol=1e-5")
 
         # ---- kernel timings at the main path's shapes ----------------
         codes = head["codes"]
@@ -297,7 +563,6 @@ def main() -> int:
         idx = torch.arange(ops.n_tiles(n, tile), dtype=torch.int32,
                            device=dev)
         code_b = codes.element_size()
-        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
         recs = []
         scores_ms = time_ms(lambda: kernel.pq_scores_cuda(codes, s), 20)
         scores_plain = time_ms(lambda: ref.pq_scores(codes, s), 5)
@@ -311,36 +576,49 @@ def main() -> int:
             n * m * code_b + bq * m * b * 4 + bq * n * 4, bq * n * (m - 1),
             bq * n * m, n_sms)
         print(f"bound pq_scores: {terms} ms on {n_sms} SMs")
+        src = "src/repro_torch/kernels/pqtopk/csrc/pqtopk.cu"
         recs.append({
-            "name": "pq_scores", "route": "cuda",
-            "source": "src/repro_torch/kernels/pqtopk/csrc/pqtopk.cu",
+            "name": "pq_scores", "route": "cuda", "source": src,
             "replaces": "src/repro/kernels/pqtopk/kernel.py:100",
-            "launches": launches["pq_scores"],
+            "launches": launches["pqtopk_kernel"]["pq_scores"],
             "max_abs_err": max_err["pq_scores"], "ms": scores_ms,
             "plain_ms": scores_plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": emb_ms})
         topk_ms = time_ms(lambda: kernel.pq_topk_fused_cuda(
-            codes, s, 16, idx, n_items=n, tile=tile), 20)
+            codes, s, K_KERNEL, idx, n_items=n, tile=tile), 20)
         topk_plain = time_ms(lambda: ref.pq_topk_slots(
-            codes, s, 16, idx, n_items=n, tile=tile), 3)
+            codes, s, K_KERNEL, idx, n_items=n, tile=tile), 3)
         n_slots = idx.numel()
         bnd, by, terms = bound_ms(
             n * m * code_b + bq * m * b * 4 + n_slots * 4
-            + bq * n_slots * 16 * 8, bq * n * (m - 1), bq * n * m, n_sms)
+            + bq * n_slots * K_KERNEL * 8, bq * n * (m - 1), bq * n * m,
+            n_sms)
         print(f"bound pq_topk_fused: {terms} ms on {n_sms} SMs")
         recs.append({
-            "name": "pq_topk_fused", "route": "cuda",
-            "source": "src/repro_torch/kernels/pqtopk/csrc/pqtopk.cu",
+            "name": "pq_topk_fused", "route": "cuda", "source": src,
             "replaces": "src/repro/kernels/pqtopk/kernel.py:145",
-            "launches": launches["pq_topk_fused"],
+            "launches": launches["pqtopk_fused"]["pq_topk_fused"],
             "max_abs_err": max_err["pq_topk_fused"], "ms": topk_ms,
             "plain_ms": topk_plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": None})
+    # The pruned forms, timed on the skewed catalogue (the random-weight
+    # model's bounds prune nothing); launches from the pruned engines.
+    recs.append({
+        "name": "pq_topk_fused_sentinel", "route": "cuda", "source": src,
+        "replaces": "src/repro/kernels/pqtopk/kernel.py:170",
+        "launches": launches["pqtopk_pruned"]["pq_topk_fused"],
+        "max_abs_err": max_err["pq_topk_fused"],
+        **forms["pq_topk_fused_sentinel"], "library_ms": None})
+    recs.append({
+        "name": "pq_topk_fused_2d", "route": "cuda", "source": src,
+        "replaces": "src/repro/kernels/pqtopk/kernel.py:156",
+        "launches": launches["pqtopk_pruned_grouped"]["pq_topk_fused_2d"],
+        "max_abs_err": max_err["pq_topk_fused_2d"],
+        **forms["pq_topk_fused_2d"], "library_ms": None})
     for r in recs:
         print(f"kernel {r['name']}: {r['ms']:.4f}ms plain {r['plain_ms']:.4f}"
               f"ms bound {r['bound_ms']:.4f}ms ({r['bound_by']}) library "
-              f"{r['library_ms']} launches {r['launches']} at N={n} B={bq} "
-              f"m={m} b={b} on {card}")
+              f"{r['library_ms']} launches {r['launches']} on {card}")
     print(f"total: {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": recs}))
     print(f"{card}")

@@ -4,18 +4,47 @@
 leaves as numpy arrays (or anything ``np.asarray`` accepts) and returns
 the same tree of torch tensors.  The layouts already agree: dense weights
 stay ``(d_in, d_out)``, codes keep their storage dtype (``uint16`` at
-b=512).  The pruned-cascade metadata ``item_emb.pruned`` is dropped; the
-port serves only the flat routes.
+b=512).  The pruned-cascade metadata ``item_emb.pruned`` (the reference's
+``PrunedHeadState``, a dataclass) becomes the port's
+:class:`~repro_torch.core.pruning.PrunedHeadState`, field for field; its
+``uint32`` presence words are carried as ``int32`` with the same bits.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
 import torch
 
-#: Keys of the reference's ``item_emb`` dict that the port does not carry.
-SKIPPED_HEAD_KEYS = ("pruned",)
+from repro_torch.core.pruning import ARRAY_FIELDS, PrunedHeadState
+
+
+def _array(a, device):
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def pruned_state_from_jax(state: Any, device="cpu") -> PrunedHeadState:
+    """The reference's flat ``PrunedHeadState`` (numpy leaves) -> the
+    port's.  Raises on a sharded or super-tile state: those layouts are
+    later port slices."""
+    fields = {f.name: getattr(state, f.name)
+              for f in dataclasses.fields(state)}
+    if fields["shards"] != 1:
+        raise NotImplementedError(
+            f"pruned state with shards={fields['shards']}: the sharded "
+            "layout is a later port slice")
+    if fields["super_factor"] > 1:
+        raise NotImplementedError(
+            f"pruned state with super_factor={fields['super_factor']}: "
+            "super-tiles are a later port slice")
+    for name in ARRAY_FIELDS:
+        if fields[name] is not None:
+            fields[name] = _array(fields[name], device)
+    return PrunedHeadState(**fields)
 
 
 def _convert(tree: Any, device) -> Any:
@@ -23,19 +52,19 @@ def _convert(tree: Any, device) -> Any:
         return {k: _convert(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_convert(v, device) for v in tree]
-    return torch.from_numpy(np.array(tree)).to(device)
+    if dataclasses.is_dataclass(tree):
+        return pruned_state_from_jax(tree, device)
+    return _array(tree, device)
 
 
 def params_from_jax(tree: Any, device="cpu") -> Any:
     """The reference's seqrec parameter tree -> the port's, on ``device``."""
-    tree = dict(tree)
-    tree["item_emb"] = {k: v for k, v in tree["item_emb"].items()
-                        if k not in SKIPPED_HEAD_KEYS}
     return _convert(tree, device)
 
 
 def to_device(tree: Any, device) -> Any:
-    """A parameter tree with every tensor moved to ``device``."""
+    """A parameter tree with every tensor (and pruned state) moved to
+    ``device``."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

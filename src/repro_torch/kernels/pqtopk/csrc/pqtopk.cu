@@ -14,12 +14,19 @@
 //
 // pq_topk_fused_kernel replaces the TPU kernel
 //   src/repro/kernels/pqtopk/kernel.py: pq_topk_fused_kernel / _tile_topk
-//   (launched by pq_topk_fused_call, 1D tile_idx, no live mask).
+//   (launched by pq_topk_fused_call, no live mask) in three of its forms:
+//   (a) a 1D identity tile_idx (the exhaustive pqtopk_fused route);
+//   (b) a 1D compacted tile_idx with -1 sentinel slots at its tail (the
+//       batch-any pqtopk_pruned route, kernel.py:170-173);
+//   (c) a 2D (n_batch_tiles, n_slots) table (the grouped pqtopk_pruned
+//       route, kernel.py:156-159): query q's slot i scores tile
+//       tile_idx[(q / batch_tile) * n_slots + i].
 //   Per (item-tile slot, query chunk): score the tile into shared memory,
 //   mask ids >= n_items to -inf, write the tile's exact top-K per query with
 //   global ids, ties to the lowest id; a slot whose tile_idx is -1 writes
 //   (-inf, n_items).  Output (B, n_slots, K) f32 + i32; the cross-slot merge
-//   is left to the caller.
+//   is left to the caller.  In the 2D form a query chunk never straddles two
+//   rows (its size divides batch_tile), so a block reads one row.
 //   Bound: operations.  It reads N*m codes (once per query chunk, mostly
 //   from L2) and writes only B*n_slots*K candidates, so bytes bound it far
 //   less than its B*N*(m-1) f32 adds; in practice the B*N*m shared-memory
@@ -29,7 +36,9 @@
 //   leave shared memory; one warp per query then takes K rounds of a warp
 //   arg-max over the tile, each lane holding its 64 columns in registers
 //   with the best of each group of 8 cached, so taking a column rescans
-//   only its group.
+//   only its group.  For (b) and (c) the work is data-dependent: the bound
+//   counts only the scored (slot, query) pairs, pairs_scored x tile x m
+//   shared-memory lookups of S (sentinel slots exit at once).
 //
 // Both kernels reduce the m per-split partials in exactly the reference's
 // tree_sum order (pairs, odd tail appended), and the build uses no fast-math
@@ -178,7 +187,7 @@ pq_topk_fused_kernel(const CT* __restrict__ codes, const float* __restrict__ s,
                      const int* __restrict__ tile_idx,
                      float* __restrict__ out_v, int* __restrict__ out_i,
                      int n_rows, int n_items, int m_rt, int b, int bq,
-                     int n_slots, int tile, int k, int qb) {
+                     int n_slots, int tile, int k, int qb, int batch_tile) {
   extern __shared__ float sh[];
   const int m = M > 0 ? M : m_rt;
   float* s_sh = sh;                                   // (qb, m, b)
@@ -187,14 +196,20 @@ pq_topk_fused_kernel(const CT* __restrict__ codes, const float* __restrict__ s,
   const int nq = min(qb, bq - q0);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int n_cols = tile >> 5;                       // columns per lane
-  // Columns past the tile never exist: mark them taken up front.
+  // This lane's columns lane + 32 j < tile; those past the tile never
+  // exist: mark them taken up front.
+  const int n_cols = tile > lane ? (tile - lane + 31) >> 5 : 0;
   const unsigned long long absent =
       n_cols >= kLaneCols ? 0ull : (~0ull << n_cols);
+  // 2D table: the chunk's queries all lie in row q0 / batch_tile.
+  const int* row_idx =
+      batch_tile > 0
+          ? tile_idx + static_cast<long long>(q0 / batch_tile) * n_slots
+          : tile_idx;
   stage_s(s_sh, s, q0, nq, m * b);
   // Resident blocks: S is staged once and the block strides over slots.
   for (int slot = blockIdx.x; slot < n_slots; slot += gridDim.x) {
-    const int t_id = tile_idx[slot];                  // block-uniform
+    const int t_id = row_idx[slot];                   // block-uniform
     if (t_id < 0) {                                   // sentinel slot
       for (int e = threadIdx.x; e < nq * k; e += blockDim.x) {
         const long long o =
@@ -320,9 +335,13 @@ int launch_scores(const void* codes, const float* s, float* out, int n, int m,
 template <typename CT, int M>
 int launch_topk(const void* codes, const float* s, const int* tile_idx,
                 float* out_v, int* out_i, int n_rows, int n_items, int m,
-                int b, int bq, int n_slots, int tile, int k,
+                int b, int bq, int n_slots, int tile, int k, int batch_tile,
                 cudaStream_t stream) {
-  const int qb = qb_for((m * b + tile) * 4, bq, 100 * 1024);
+  int qb = qb_for((m * b + tile) * 4, bq, 100 * 1024);
+  if (batch_tile > 0) {            // 2D: a chunk must not straddle two rows
+    qb = qb < batch_tile ? qb : batch_tile;
+    while (batch_tile % qb) --qb;
+  }
   const size_t smem =
       static_cast<size_t>(qb) * (m * b + tile) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -336,7 +355,7 @@ int launch_topk(const void* codes, const float* s, const int* tile_idx,
   if (rc != 0) return rc;
   pq_topk_fused_kernel<CT, M><<<dim3(gx, ny), kThreads, smem, stream>>>(
       static_cast<const CT*>(codes), s, tile_idx, out_v, out_i, n_rows,
-      n_items, m, b, bq, n_slots, tile, k, qb);
+      n_items, m, b, bq, n_slots, tile, k, qb, batch_tile);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -379,17 +398,21 @@ int pq_scores_launch(const void* codes, int code_type, const void* s,
               static_cast<cudaStream_t>(stream))
 }
 
+// batch_tile == 0: tile_idx is 1D (n_slots,); batch_tile > 0: tile_idx is
+// 2D (ceil(bq / batch_tile), n_slots), row j serving queries
+// j * batch_tile .. (j + 1) * batch_tile - 1.
 int pq_topk_fused_launch(const void* codes, int code_type, const void* s,
                          const void* tile_idx, void* out_v, void* out_i,
                          int n_rows, int n_items, int m, int b, int bq,
-                         int n_slots, int tile, int k, void* stream) {
-  if (m < 1 || m > kMaxM || tile > 32 * kLaneCols || tile % 32 || k < 1 ||
-      k > tile)
+                         int n_slots, int tile, int k, int batch_tile,
+                         void* stream) {
+  if (m < 1 || m > kMaxM || tile < 1 || tile > 32 * kLaneCols || k < 1 ||
+      k > tile || batch_tile < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   PQ_DISPATCH(launch_topk, codes, static_cast<const float*>(s),
               static_cast<const int*>(tile_idx), static_cast<float*>(out_v),
               static_cast<int*>(out_i), n_rows, n_items, m, b, bq, n_slots,
-              tile, k, static_cast<cudaStream_t>(stream))
+              tile, k, batch_tile, static_cast<cudaStream_t>(stream))
 }
 
 }  // extern "C"

@@ -4,8 +4,11 @@
 which TPU kernel each replaces and what bounds it on the card):
 
 * ``pq_scores``     — all PQ scores (B, N), the ``pqtopk_kernel`` route;
-* ``pq_topk_fused`` — per item-tile exact top-K, the ``pqtopk_fused``
-  route; the cross-slot merge is ``ops._merge_slot_winners``.
+* ``pq_topk_fused`` — per item-tile exact top-K over a tile list: the 1D
+  identity list (the ``pqtopk_fused`` route), a 1D compacted list with
+  ``-1`` sentinel slots (the batch-any ``pqtopk_pruned`` route) or a 2D
+  (batch tile, slot) table (the grouped ``pqtopk_pruned`` route); the
+  cross-slot merge is ``ops._merge_slot_winners``.
 
 The source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``_build/`` beside this
@@ -15,7 +18,8 @@ hosts import this module and never call into it.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 what its kernel does not take; it launches on the current CUDA stream and
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches`` (the fused kernel's 2D-table
+launches in ``pq_topk_fused_cuda.launches_2d``).
 """
 from __future__ import annotations
 
@@ -103,7 +107,7 @@ def _load():
         lib.pq_scores_launch.argtypes = [p, i, p, p, i, i, i, i, p]
         lib.pq_scores_launch.restype = i
         lib.pq_topk_fused_launch.argtypes = [p, i, p, p, p, p, i, i, i, i, i,
-                                             i, i, i, p]
+                                             i, i, i, i, p]
         lib.pq_topk_fused_launch.restype = i
         _lib = lib
     return _lib
@@ -158,20 +162,35 @@ pq_scores_cuda.launches = 0
 
 
 def pq_topk_fused_cuda(codes: torch.Tensor, s: torch.Tensor, k: int,
-                       tile_idx: torch.Tensor, *, n_items: int, tile: int):
-    """Per-slot exact top-``k`` of codes tile ``tile_idx[i]`` (1D int32,
-    ``-1`` = sentinel slot), global ids, ids >= ``n_items`` masked to -inf.
-    -> (vals (B, n_slots, k) f32, ids (B, n_slots, k) i32)."""
+                       tile_idx: torch.Tensor, *, n_items: int, tile: int,
+                       batch_tile: int = 0):
+    """Per-slot exact top-``k`` of codes tile ``tile_idx[i]`` (``-1`` =
+    sentinel slot), global ids, ids >= ``n_items`` masked to -inf.
+    ``tile_idx`` is 1D (n_slots,) with ``batch_tile=0``, or 2D (n_bt,
+    n_slots) with ``batch_tile >= 1``: row ``j`` serves queries
+    ``j*batch_tile .. (j+1)*batch_tile - 1``, and the rows must cover the
+    batch.  -> (vals (B, n_slots, k) f32, ids (B, n_slots, k) i32)."""
     _check_inputs(codes, s)
     n, m = codes.shape
     bq, _, b = s.shape
-    if tile_idx.dim() != 1 or tile_idx.dtype != torch.int32 \
-            or tile_idx.device != s.device or not tile_idx.is_contiguous():
-        raise ValueError("tile_idx must be a contiguous 1D int32 tensor on "
-                         "the kernel's device")
-    if tile % 32 or not 32 <= tile <= MAX_TILE:
-        raise ValueError(f"tile={tile} must be a multiple of 32 in "
-                         f"[32, {MAX_TILE}]")
+    if tile_idx.dtype != torch.int32 or tile_idx.device != s.device \
+            or not tile_idx.is_contiguous():
+        raise ValueError("tile_idx must be a contiguous int32 tensor on the "
+                         "kernel's device")
+    if tile_idx.dim() == 1:
+        if batch_tile != 0:
+            raise ValueError("a 1D tile_idx takes batch_tile=0")
+    elif tile_idx.dim() == 2:
+        if batch_tile < 1 or tile_idx.shape[0] * batch_tile < bq:
+            raise ValueError(
+                f"2D tile_idx has {tile_idx.shape[0]} rows; batch_tile="
+                f"{batch_tile} needs {-(-bq // max(batch_tile, 1))} to cover "
+                f"{bq} queries")
+    else:
+        raise ValueError(f"tile_idx must be 1D or 2D, got "
+                         f"{tuple(tile_idx.shape)}")
+    if not 1 <= tile <= MAX_TILE:
+        raise ValueError(f"tile={tile} outside [1, {MAX_TILE}]")
     if not 1 <= k <= tile:
         raise ValueError(f"k={k} outside [1, tile={tile}]")
     if not 0 <= n_items <= n:
@@ -180,7 +199,7 @@ def pq_topk_fused_cuda(codes: torch.Tensor, s: torch.Tensor, k: int,
     if lib.pq_smem_bytes(1, m, b, bq, tile) > MAX_SMEM:
         raise ValueError(f"S and one score tile (m={m}, b={b}, tile={tile}) "
                          "do not fit in shared memory")
-    n_slots = tile_idx.shape[0]
+    n_slots = tile_idx.shape[-1]
     out_v = torch.empty((bq, n_slots, k), dtype=torch.float32,
                         device=s.device)
     out_i = torch.empty((bq, n_slots, k), dtype=torch.int32, device=s.device)
@@ -190,10 +209,14 @@ def pq_topk_fused_cuda(codes: torch.Tensor, s: torch.Tensor, k: int,
     err = lib.pq_topk_fused_launch(
         codes.data_ptr(), CODE_TYPES[codes.dtype], s.data_ptr(),
         tile_idx.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), n, n_items,
-        m, b, bq, n_slots, tile, k, stream)
+        m, b, bq, n_slots, tile, k, batch_tile, stream)
     _raise_on(err, "pq_topk_fused")
-    pq_topk_fused_cuda.launches += 1
+    if tile_idx.dim() == 2:
+        pq_topk_fused_cuda.launches_2d += 1
+    else:
+        pq_topk_fused_cuda.launches += 1
     return out_v, out_i
 
 
 pq_topk_fused_cuda.launches = 0
+pq_topk_fused_cuda.launches_2d = 0

@@ -5,6 +5,12 @@ tensor on the CPU goes to the kernel's plain version in :mod:`ref`.  The
 wrappers own the item-tile rule ``tile = min(2048, round_up(N, 128))``
 and the ``k > tile`` error, which the engine's ``max_k`` and the slot
 count depend on, and the cross-slot merge of the fused kernel's winners.
+
+:func:`pq_topk_tiles` is the pruned cascade's scoring stage: the fused
+kernel over a compacted tile list (1D, ``-1`` sentinel slots at the tail)
+or a 2D (batch tile, slot) table (the grouped route), and
+:func:`pq_topk_tiles_ladder` launches it on the first slot-budget rung
+that holds a survivor count the caller has read on the host.
 """
 from __future__ import annotations
 
@@ -28,6 +34,18 @@ def effective_batch_tile(bq: int,
     CUDA kernel and the plain version take any batch; this and the two
     ``_pad_*`` helpers mirror the reference's padding for parity checks."""
     return min(batch_tile, _round_up(bq, 8))
+
+
+def group_batch_tile(bq: int, n_groups: int,
+                     batch_tile: int = _k.DEFAULT_BATCH_TILE) -> int:
+    """Batch-tile size of the grouped route: the power of two (at least 8)
+    that splits the batch into about ``n_groups`` tiles, capped at
+    :func:`effective_batch_tile`."""
+    target = -(-bq // max(n_groups, 1))
+    bt = 8
+    while bt < target:
+        bt *= 2
+    return min(bt, effective_batch_tile(bq, batch_tile))
 
 
 def n_tiles(n: int, tile: int) -> int:
@@ -73,13 +91,16 @@ def pq_scores(codes: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
-                  tile_idx: torch.Tensor, *, n_items: int, tile: int):
-    """The fused kernel's output: per-slot winners (B, n_slots, k)."""
+                  tile_idx: torch.Tensor, *, n_items: int, tile: int,
+                  batch_tile: int = 0):
+    """The fused kernel's output: per-slot winners (B, n_slots, k).  A 2D
+    ``tile_idx`` gives row ``j`` to queries ``j*batch_tile ..``."""
     if s.is_cuda:
         return _k.pq_topk_fused_cuda(codes.contiguous(), s.contiguous(), k,
-                                     tile_idx, n_items=n_items, tile=tile)
+                                     tile_idx.contiguous(), n_items=n_items,
+                                     tile=tile, batch_tile=batch_tile)
     return _ref.pq_topk_slots(codes, s, k, tile_idx, n_items=n_items,
-                              tile=tile)
+                              tile=tile, batch_tile=batch_tile)
 
 
 def pq_topk(codes: torch.Tensor, s: torch.Tensor, k: int, *,
@@ -94,3 +115,46 @@ def pq_topk(codes: torch.Tensor, s: torch.Tensor, k: int, *,
     idx = torch.arange(n_tiles(n, tile), dtype=torch.int32, device=s.device)
     tv, ti = pq_topk_slots(codes, s, k, idx, n_items=n, tile=tile)
     return _merge_slot_winners(tv, ti, k)
+
+
+def pq_topk_tiles(codes: torch.Tensor, s: torch.Tensor, k: int,
+                  tile_idx: torch.Tensor, *, tile: int = _k.DEFAULT_TILE,
+                  batch_tile: int = _k.DEFAULT_BATCH_TILE, live=None):
+    """Fused scoring + top-k over the tiles a compacted list names.
+
+    ``tile_idx`` is 1D (one ascending list for the batch, ``-1`` sentinels
+    behind) or 2D ``(n_batch_tiles, n_slots)`` (each batch tile of
+    ``effective_batch_tile(B, batch_tile)`` queries scores its own
+    ascending row).  Work is O(slots * tile * m), not O(N * m).
+    -> (vals (B,k), ids (B,k)), bit-identical to the exhaustive route for
+    the surviving items."""
+    if live is not None:
+        raise NotImplementedError(
+            "the tombstone mask ('live', the mutable catalogue) is a later "
+            "port slice and not ported yet")
+    n = codes.shape[0]
+    bq = s.shape[0]
+    tile = min(tile, _round_up(n, 128))
+    if k > tile:
+        raise ValueError(f"k={k} > tile={tile}")
+    bt = effective_batch_tile(bq, batch_tile) if tile_idx.dim() == 2 else 0
+    idx = tile_idx.to(device=s.device, dtype=torch.int32)
+    tv, ti = pq_topk_slots(codes, s, k, idx, n_items=n, tile=tile,
+                           batch_tile=bt)
+    return _merge_slot_winners(tv, ti, k)
+
+
+def pq_topk_tiles_ladder(codes: torch.Tensor, s: torch.Tensor, k: int,
+                         slot_lists, count: int, *, tile: int,
+                         batch_tile: int = _k.DEFAULT_BATCH_TILE):
+    """Score the first rung of ``slot_lists`` (``-1``-padded buffers of
+    strictly increasing length, the last exhaustive; 2D rows for the
+    grouped route) whose budget holds ``count``, the survivor count (the
+    largest group's when grouped) that the caller read on the host; the
+    last rung scores whatever the count.  -> (vals (B,k), ids (B,k), rung
+    index)."""
+    rung = next((i for i, sl in enumerate(slot_lists[:-1])
+                 if count <= sl.shape[-1]), len(slot_lists) - 1)
+    vals, ids = pq_topk_tiles(codes, s, k, slot_lists[rung], tile=tile,
+                              batch_tile=batch_tile)
+    return vals, ids, rung

@@ -28,15 +28,30 @@ def pq_topk(codes: torch.Tensor, s: torch.Tensor, k: int):
 
 
 def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
-                  tile_idx: torch.Tensor, *, n_items: int, tile: int):
+                  tile_idx: torch.Tensor, *, n_items: int, tile: int,
+                  batch_tile: int = 0):
     """What the fused kernel writes: for each slot ``i`` the exact top-``k``
     of codes tile ``tile_idx[i]`` per query, with global ids and ids
     ``>= n_items`` masked to ``-inf`` first; ties to the lowest id.  A
     ``-1`` slot emits ``(-inf, n_items)``.  -> (B, n_slots, k) f32 + i32.
 
-    Tiles may run past the codes' rows (a ragged last tile, or a whole
-    tile past the catalogue): those rows score as padding and are masked.
+    A 2D ``(n_bt, n_slots)`` table with ``batch_tile`` gives row ``j`` to
+    queries ``j*batch_tile .. (j+1)*batch_tile - 1``.  Tiles may run past
+    the codes' rows (a ragged last tile, or a whole tile past the
+    catalogue): those rows score as padding and are masked.
     """
+    if tile_idx.dim() == 2:
+        bq = s.shape[0]
+        n_bt = -(-bq // batch_tile) if batch_tile > 0 else 0
+        if batch_tile < 1 or tile_idx.shape[0] < n_bt:
+            raise ValueError(
+                f"2D tile_idx has {tile_idx.shape[0]} rows; batch_tile="
+                f"{batch_tile} needs {n_bt} to cover {bq} queries")
+        rows = [pq_topk_slots(codes, s[j * batch_tile:(j + 1) * batch_tile],
+                              k, tile_idx[j], n_items=n_items, tile=tile)
+                for j in range(n_bt)]
+        return (torch.cat([v for v, _ in rows]),
+                torch.cat([i for _, i in rows]))
     n = codes.shape[0]
     bq = s.shape[0]
     n_slots = tile_idx.shape[0]

@@ -96,10 +96,24 @@ def sequence_embedding(params: Params, item_seq: torch.Tensor,
 
 
 def serve_topk(params: Params, item_seq: torch.Tensor, cfg: SeqRecConfig, *,
-               k: int = 10, method: str = "pqtopk"):
+               k: int = 10, method: str = "pqtopk", ladder=None,
+               pin_rung: bool = False, return_rung: bool = False):
     """Full serving path: backbone -> phi -> scoring -> TopK (Table 3).
-    -> (ids (B,k) int32, scores (B,k) f32)."""
+    -> (ids (B,k) int32, scores (B,k) f32[, rung]).
+
+    ``ladder``/``pin_rung``/``return_rung`` apply to
+    ``method="pqtopk_pruned"`` only: the cascade's slot budgets, its
+    cheapest-rung degraded mode, and whether to also return the rung taken
+    (the engine tallies it into ``rung_hit_fraction``)."""
+    if method != "pqtopk_pruned" and return_rung:
+        raise ValueError("return_rung is only meaningful for the pruned "
+                         "cascade (method='pqtopk_pruned')")
     phi = sequence_embedding(params, item_seq, cfg)
-    vals, ids = retrieval_head.top_items(params["item_emb"], phi, k,
-                                         method=method)
+    out = retrieval_head.top_items(params["item_emb"], phi, k, method=method,
+                                   pq_cfg=cfg.pq, ladder=ladder,
+                                   pin_rung=pin_rung, return_rung=return_rung)
+    if return_rung:
+        vals, ids, rung = out
+        return ids, vals, rung
+    vals, ids = out
     return ids, vals

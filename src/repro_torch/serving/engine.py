@@ -1,8 +1,9 @@
 """Batched retrieval serving: request = user history, response = top-K items.
 
 Backbone -> phi -> PQTopK -> TopK, batched, with deadline shedding,
-bounded retry of injected failures and straggler accounting — the flat
-routes of the reference's ``serving/engine.py``.
+bounded retry of injected failures and straggler accounting — the
+single-device routes of the reference's ``serving/engine.py``, the pruned
+cascade's calibrated slot-budget ladder and rung statistics included.
 """
 from __future__ import annotations
 
@@ -41,6 +42,9 @@ class Result:
     # A shed request was never scored: past its deadline before dispatch,
     # or its batch exhausted the retry budget.
     shed: bool = False
+    # Why the result may be inexact ("rung_pin": served by the cascade
+    # pinned to its cheapest rung); "" for an exact result.
+    degraded: str = ""
 
 
 class MicroBatcher:
@@ -78,6 +82,7 @@ class PreparedBatch:
     fn: Callable                      # serve variant (takes seqs)
     kk: int                           # the batch's k bucket
     batch_index: int
+    degraded: str = ""                # tag carried into every Result
 
 
 @dataclass
@@ -98,22 +103,34 @@ class RetrievalEngine:
                  max_batch: int = 64, method: Optional[str] = None,
                  device="cuda", faults: Optional[Any] = None,
                  max_retries: int = 2, retry_backoff_ms: float = 1.0,
-                 straggler_factor: float = 3.0):
-        """``serve_fn(item_seq (B,S) int32, k)`` -> (ids (B,k), scores).
+                 straggler_factor: float = 3.0,
+                 ladder: Optional[Sequence[int]] = None,
+                 serve_fn_pinned: Optional[Callable] = None):
+        """``serve_fn(item_seq (B,S) int32, k)`` -> (ids (B,k), scores) or,
+        for a pruned route with a ladder, (ids, scores, rung taken); the
+        engine tallies the rung into ``rung_counts``.
 
         Serve variants are memoised per ``(batch_bucket, k_bucket,
-        method)``; ``stats()["n_compiles"]`` counts them, as the reference
-        counts its compiled executables.  ``max_k`` caps client k (default
-        ``k``).  ``faults`` (a ``ServeFaultInjector``) with ``max_retries``
-        and ``retry_backoff_ms`` make :meth:`run_once` retry failed
-        dispatches and shed a batch whose retries ran out."""
+        method, pinned)``; ``stats()["n_compiles"]`` counts them, as the
+        reference counts its compiled executables.  ``max_k`` caps client
+        k (default ``k``).  ``faults`` (a ``ServeFaultInjector``) with
+        ``max_retries`` and ``retry_backoff_ms`` make :meth:`run_once`
+        retry failed dispatches and shed a batch whose retries ran out.
+        ``ladder`` records the slot-budget ladder baked into a pruned
+        ``serve_fn``; ``serve_fn_pinned`` is the same route pinned to its
+        cheapest rung (bounded cost, possibly inexact), taken by a batch
+        prepared with ``rung_pin=True``."""
         self._serve_fn = serve_fn
-        self._variants: Dict[Tuple[int, int, Optional[str]], Callable] = {}
+        self._serve_fn_pinned = serve_fn_pinned
+        self._variants: Dict[Tuple[int, int, Optional[str], bool],
+                             Callable] = {}
         self.device = resolve_device(device)
         self.seq_len = seq_len
         self.k = k
         self.max_k = k if max_k is None else max(max_k, k)
         self.method = method
+        self.ladder = None if ladder is None else tuple(ladder)
+        self.rung_counts: collections.Counter = collections.Counter()
         self.batcher = MicroBatcher(max_batch=max_batch)
         self.latencies_ms: List[float] = []
         self.timeouts = 0
@@ -128,36 +145,99 @@ class RetrievalEngine:
     @classmethod
     def for_seqrec(cls, params, cfg, *, k: int = 10, max_batch: int = 64,
                    method: Optional[str] = None, device="cuda",
+                   calibrate: Optional[bool] = None,
+                   survival_stats: Optional[Sequence[int]] = None,
+                   ladder: Optional[Tuple[int, ...]] = None,
                    faults: Optional[Any] = None, max_retries: int = 2,
                    retry_backoff_ms: float = 1.0) -> "RetrievalEngine":
-        """Stand up an engine on a seqrec model with a flat scoring route.
-        ``method=None`` falls back to ``cfg.serve_method`` (the recjpq
-        configs serve ``"pqtopk_fused"``, the fused CUDA kernel).  The
-        parameters are moved to ``device``."""
+        """Stand up an engine on a seqrec model.  ``method=None`` falls
+        back to ``cfg.serve_method`` (the recjpq configs serve
+        ``"pqtopk_fused"``, the fused CUDA kernel).  The parameters are
+        moved to ``device``.
+
+        ``method="pqtopk_pruned"`` serves the pruned cascade with a
+        calibrated slot-budget ladder: a calibration pass at build time
+        (``calibrate``, default on; or recorded ``survival_stats``, a
+        sequence of surviving-tile counts) feeds
+        ``pruning.calibrate_ladder``.  With ``cfg.pq.query_grouping`` the
+        observable is the largest per-group count, which the grouped
+        ladder escalates on.  An explicit ``ladder`` skips calibration;
+        ``calibrate=False`` serves without one."""
+        from repro_torch.core import pruning, retrieval_head
         from repro_torch.interop import to_device
         from repro_torch.kernels.pqtopk import kernel as pqtopk_kernel
         from repro_torch.models import seqrec as seqrec_lib
         dev = resolve_device(device)
         method = method or getattr(cfg, "serve_method", "pqtopk")
-        if method == "pqtopk_pruned":
-            raise NotImplementedError(
-                "method 'pqtopk_pruned' (the pruned cascade) is port slice "
-                "2 and not ported yet")
         params = to_device(params, dev)
-        # Largest k the route can serve: the catalogue, and for the fused
-        # kernel also its item tile (pq_topk rejects k > tile).
+        # Largest k the route can serve: the catalogue, and for the
+        # fused-kernel routes also its item tile (k > tile is refused).
         max_k = cfg.n_items
-        if method == "pqtopk_fused":
+        if method in ("pqtopk_fused", "pqtopk_pruned"):
             max_k = min(max_k, pqtopk_kernel.DEFAULT_TILE)
+        state = retrieval_head._pruned_state(params["item_emb"])
+        if method == "pqtopk_pruned" and ladder is None \
+                and calibrate is not False and state is not None:
+            counts = (list(survival_stats) if survival_stats is not None
+                      else cls._observe_survival(params, cfg, k=k,
+                                                 max_batch=max_batch))
+            ladder = pruning.calibrate_ladder(counts, state.n_tiles, k,
+                                              state.tile)
+        with_rung = method == "pqtopk_pruned" and ladder is not None
 
         def serve_fn(seqs, kk):
             return seqrec_lib.serve_topk(params, seqs, cfg, k=kk,
-                                         method=method)
+                                         method=method, ladder=ladder,
+                                         return_rung=with_rung)
+
+        # The cascade pinned to its cheapest rung, built only when that
+        # rung is below the exhaustive one.
+        serve_fn_pinned = None
+        if with_rung and (state is None or min(ladder) < state.n_tiles):
+            def serve_fn_pinned(seqs, kk):
+                return seqrec_lib.serve_topk(params, seqs, cfg, k=kk,
+                                             method=method, ladder=ladder,
+                                             pin_rung=True)
 
         return cls(serve_fn, seq_len=cfg.max_seq_len, k=k, max_k=max_k,
                    max_batch=max_batch, method=method, device=dev,
                    faults=faults, max_retries=max_retries,
-                   retry_backoff_ms=retry_backoff_ms)
+                   retry_backoff_ms=retry_backoff_ms, ladder=ladder,
+                   serve_fn_pinned=serve_fn_pinned)
+
+    @staticmethod
+    def _observe_survival(params, cfg, *, k: int, max_batch: int,
+                          n_batches: int = 3, seed: int = 0) -> List[int]:
+        """Build-time calibration: surviving-tile counts of the cascade's
+        bounds + theta prefix (no scoring) over ``n_batches`` random
+        request batches at 1, 8 and ``max_batch`` queries — the largest
+        per-group count when ``cfg.pq.query_grouping`` is on."""
+        from repro_torch.core import pruning, retrieval_head, scoring
+        from repro_torch.models import seqrec as seqrec_lib
+        head = params["item_emb"]
+        state = head["pruned"]
+        pq = cfg.pq
+        seed_kw = retrieval_head._seed_kwargs(pq)
+        grouped = pq.query_grouping and pq.n_groups > 1
+        rng = np.random.default_rng(seed)
+        counts = []
+        for bsz in dict.fromkeys((1, min(8, max_batch), max_batch)):
+            for _ in range(n_batches):
+                seqs = torch.from_numpy(rng.integers(
+                    1, cfg.n_items + 1, (bsz, cfg.max_seq_len)
+                ).astype(np.int32)).to(head["codes"].device)
+                with torch.inference_mode():
+                    phi = seqrec_lib.sequence_embedding(params, seqs, cfg)
+                    s = scoring.subid_scores(head["sub_emb"], phi)
+                    if grouped:
+                        c = pruning.survival_count_grouped(
+                            head["codes"], s, k, state, n_groups=pq.n_groups,
+                            **seed_kw)
+                    else:
+                        c = pruning.survival_count(head["codes"], s, k, state,
+                                                   **seed_kw)
+                counts.append(int(c))
+        return counts
 
     def submit(self, req: Request):
         self.batcher.submit(req)
@@ -169,17 +249,27 @@ class RetrievalEngine:
         kk = max(max(min(int(k), self.max_k) for k in ks), self.k, 1)
         return MicroBatcher.bucket(kk, self.max_k)
 
-    def _variant(self, bucket: int, kk: int) -> Callable:
-        """Memoised serve callable for one (batch_bucket, k_bucket, method)
-        key; takes the (bucketed) sequence batch only."""
-        key = (bucket, kk, self.method)
+    def _variant(self, bucket: int, kk: int, pinned: bool = False
+                 ) -> Callable:
+        """Memoised serve callable for one (batch_bucket, k_bucket, method,
+        pinned) key; takes the (bucketed) sequence batch only."""
+        if pinned and self._serve_fn_pinned is None:
+            raise ValueError("no pinned (degraded) serve fn on this engine")
+        key = (bucket, kk, self.method, pinned)
         fn = self._variants.get(key)
         if fn is None:
-            fn = lambda seqs, _k=kk: self._serve_fn(seqs, _k)
+            sfn = self._serve_fn_pinned if pinned else self._serve_fn
+            fn = lambda seqs, _k=kk, _f=sfn: _f(seqs, _k)
             self._variants[key] = fn
         return fn
 
-    def _shed_result(self, r: Request, now: float) -> Result:
+    @property
+    def has_pinned(self) -> bool:
+        """Whether this engine carries a rung-pinned serve route."""
+        return self._serve_fn_pinned is not None
+
+    def _shed_result(self, r: Request, now: float,
+                     degraded: str = "") -> Result:
         lat = (now - r.arrival) * 1e3
         timed_out = lat > r.deadline_ms
         self.shed += 1
@@ -187,13 +277,15 @@ class RetrievalEngine:
         self.latencies_ms.append(lat)
         return Result(r.request_id, np.empty(0, np.int32),
                       np.empty(0, np.float32), lat, timed_out=timed_out,
-                      shed=True)
+                      shed=True, degraded=degraded)
 
-    def prepare(self, reqs: List[Request]
+    def prepare(self, reqs: List[Request], *, rung_pin: bool = False
                 ) -> Tuple[List[Result], Optional[PreparedBatch]]:
         """Host side of one dispatch: shed expired requests, left-pad the
-        rest into their power-of-two bucket, resolve the serve variant.
-        Returns (shed results, prepared batch or None)."""
+        rest into their power-of-two bucket, resolve the serve variant
+        (the rung-pinned one when ``rung_pin`` and the engine has it; its
+        results are tagged ``degraded="rung_pin"``).  Returns (shed
+        results, prepared batch or None)."""
         batch_index = self._batch_index
         self._batch_index += 1
         now = time.monotonic()
@@ -210,13 +302,15 @@ class RetrievalEngine:
         # Requests in one batch may disagree on k: score once at the batch
         # k and give each request its own prefix (top-k prefixes nest).
         kk = self.batch_k([r.k for r in alive])
+        pinned = rung_pin and self.has_pinned
         seqs = np.zeros((bucket, self.seq_len), np.int32)
         for i, r in enumerate(alive):
             s = np.asarray(r.payload)[-self.seq_len:]
             seqs[i, -len(s):] = s
         return results, PreparedBatch(
             alive, torch.from_numpy(seqs).to(self.device),
-            self._variant(bucket, kk), kk, batch_index)
+            self._variant(bucket, kk, pinned), kk, batch_index,
+            degraded="rung_pin" if pinned else "")
 
     def launch(self, prep: PreparedBatch) -> InFlightBatch:
         """Dispatch a prepared batch; on the card the work is queued and
@@ -237,7 +331,11 @@ class RetrievalEngine:
         prep = inflight.prep
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        ids, scores = (t.cpu().numpy() for t in inflight.out)
+        out = inflight.out
+        if len(out) == 3:
+            # A pruned route with a ladder: the third output is the rung.
+            self.rung_counts[int(out[2])] += 1
+        ids, scores = (t.cpu().numpy() for t in out[:2])
         if self.faults is not None:
             delay = self.faults.delay_s(prep.batch_index)
             if delay:
@@ -252,16 +350,16 @@ class RetrievalEngine:
             self.latencies_ms.append(lat)
             rk = max(1, min(r.k, prep.kk))
             results.append(Result(r.request_id, ids[i, :rk], scores[i, :rk],
-                                  lat, timed_out))
+                                  lat, timed_out, degraded=prep.degraded))
         return results
 
-    def run_once(self) -> List[Result]:
+    def run_once(self, *, rung_pin: bool = False) -> List[Result]:
         """Serve one batch: prepare -> launch (with bounded retry of
         injected failures) -> complete."""
         reqs = self.batcher.next_batch()
         if not reqs:
             return []
-        results, prep = self.prepare(reqs)
+        results, prep = self.prepare(reqs, rung_pin=rung_pin)
         if prep is None:
             return results
         inflight = None
@@ -277,7 +375,8 @@ class RetrievalEngine:
         if inflight is None:
             # Retries exhausted: the batch never dispatched; shed it.
             now = time.monotonic()
-            results.extend(self._shed_result(r, now) for r in prep.requests)
+            results.extend(self._shed_result(r, now, prep.degraded)
+                           for r in prep.requests)
             return results
         results.extend(self.complete(inflight))
         return results
@@ -292,7 +391,7 @@ class RetrievalEngine:
         # No traffic yet -> None, not 0.0: a placeholder zero would read as
         # a real latency to anything averaging across engines.
         lat = np.asarray(self.latencies_ms) if self.latencies_ms else None
-        return {
+        out: Dict[str, Any] = {
             "count": float(len(self.latencies_ms)),
             "mRT_ms": float(np.median(lat)) if lat is not None else None,
             "p99_ms": (float(np.percentile(lat, 99))
@@ -303,3 +402,14 @@ class RetrievalEngine:
             "shed": float(self.shed),
             "stragglers": float(len(self.straggler_monitor.flagged)),
         }
+        if self.ladder is not None:
+            # Share of served batches that stayed on a non-exhaustive rung
+            # (the ladder's last rung scores every tile).
+            total = sum(self.rung_counts.values())
+            non_exhaustive = sum(c for r, c in self.rung_counts.items()
+                                 if r < len(self.ladder) - 1)
+            out["ladder"] = self.ladder
+            out["rung_hit_fraction"] = (non_exhaustive / total if total
+                                        else 0.0)
+            out["rung_counts"] = dict(sorted(self.rung_counts.items()))
+        return out

@@ -2,13 +2,22 @@
 ``stats()`` schema and bucketing rules, serve-variant memoisation,
 left-padding, deadline and ``--fail-at`` shedding, and results equal to the
 port's own ``serve_topk``."""
+import functools
 import time
+from dataclasses import replace
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import base as jcfg
+from repro.core import pruning as jpruning
+from repro.models import seqrec as jseqrec
 from repro.serving import engine as jengine
+from repro_torch.configs import base as tcfg
+from repro_torch.interop import params_from_jax
 from repro_torch.configs.base import get_reduced
 from repro_torch.launch import serve as tserve
 from repro_torch.models import seqrec
@@ -23,9 +32,9 @@ def params():
     return seqrec.init_seqrec(torch.Generator().manual_seed(0), CFG)
 
 
-def _engine(params, **kw):
+def _engine(params, cfg=CFG, **kw):
     kw.setdefault("device", "cpu")
-    return RetrievalEngine.for_seqrec(params, CFG, **kw)
+    return RetrievalEngine.for_seqrec(params, cfg, **kw)
 
 
 def _history(rng, n=None):
@@ -139,3 +148,106 @@ def test_serve_cli_prints_summary(capsys):
     assert "mRT=" in out and "p99=" in out and "n_compiles=" in out
     assert "shed=8" in out          # batch 3 = the 2nd of the timed stream
     assert sum(r.shed for r in results) == 8
+
+
+@functools.cache
+def _pruned_models(grouped):
+    """The reduced SASRec at 6,000 items (3 pruning tiles) with clustered
+    codes, in the reference's tree (its own init) and the port's
+    (``interop``), grouping on or off."""
+    base = jcfg.get_reduced("sasrec-recjpq").model
+    pq = replace(base.pq, query_grouping=grouped, n_groups=8)
+    jc = replace(base, n_items=6000, pq=pq)
+    tc = replace(CFG, n_items=6000, pq=tcfg.PQConfig(**vars(pq)))
+    jp = jseqrec.init_seqrec(jax.random.PRNGKey(1), jc)
+    rng = np.random.default_rng(1)
+    n = jc.n_items + 1
+    centers = (np.arange(n) / n * pq.b).astype(np.int64)
+    codes = np.clip(centers[:, None] + rng.integers(-1, 2, (n, pq.m)), 0,
+                    pq.b - 1).astype(pq.code_dtype)
+    item = {**jp["item_emb"], "codes": jnp.asarray(codes),
+            "sub_emb": jp["item_emb"]["sub_emb"] * 25.0}
+    item["pruned"] = jpruning.build_pruned_state(item["codes"], pq.b, 2048)
+    jp = {**jp, "item_emb": item}
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    return jc, tc, jp, tp
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_pruned_engine_matches_reference(grouped):
+    """The pruned engine: ladder from given survival stats, the calibration
+    pass's counts (group-aware when grouped), ``stats()`` keys,
+    ``rung_counts`` and results, against the reference engine."""
+    jc, tc, jp, tp = _pruned_models(grouped)
+    counts = [0, 0, 0, 1]
+    ref = jengine.RetrievalEngine.for_seqrec(
+        jp, jc, k=5, max_batch=8, method="pqtopk_pruned",
+        survival_stats=counts)
+    eng = RetrievalEngine.for_seqrec(tp, tc, k=5, max_batch=8,
+                                     method="pqtopk_pruned",
+                                     survival_stats=counts, device="cpu")
+    assert eng.ladder == ref.ladder == (1, 2, 3)
+    assert eng.max_k == ref.max_k and eng.has_pinned == ref.has_pinned
+    assert RetrievalEngine._observe_survival(
+        tp, tc, k=5, max_batch=8, n_batches=1) == jengine.RetrievalEngine._observe_survival(jp, jc, k=5, max_batch=8,
+                                                     n_batches=1)
+    rng = np.random.default_rng(6)
+    hists = [rng.integers(1, 6001, int(rng.integers(2, 16)))
+             for _ in range(24)]
+    outs = []
+    for e in (ref, eng):
+        for i, h in enumerate(hists):
+            e.submit(jengine.Request(i, h, k=5) if e is ref
+                     else Request(i, h, k=5))
+        outs.append({r.request_id: r for r in e.drain()})
+    rs, ts = ref.stats(), eng.stats()
+    assert set(ts) == set(rs)
+    for key in ("ladder", "rung_counts", "rung_hit_fraction", "count",
+                "n_compiles"):
+        assert ts[key] == rs[key], key
+    assert sum(ts["rung_counts"].values()) == 3
+    for i in range(len(hists)):
+        np.testing.assert_allclose(outs[1][i].scores, outs[0][i].scores,
+                                   rtol=1e-5, atol=1e-5)
+        assert outs[1][i].degraded == ""
+    # The exhaustive route gives the same winners on the port.
+    fused = _engine(tp, cfg=tc, k=5, max_batch=8, method="pqtopk_fused")
+    for i, h in enumerate(hists):
+        fused.submit(Request(i, h, k=5))
+    for r in fused.drain():
+        np.testing.assert_array_equal(r.items, outs[1][r.request_id].items)
+        np.testing.assert_array_equal(r.scores, outs[1][r.request_id].scores)
+
+
+def test_pruned_engine_pins_and_skips_calibration():
+    _, tc, _, tp = _pruned_models(False)
+    eng = RetrievalEngine.for_seqrec(tp, tc, k=5, max_batch=8,
+                                     method="pqtopk_pruned", ladder=(1,),
+                                     device="cpu")
+    assert eng.ladder == (1,) and eng.has_pinned
+    rng = np.random.default_rng(8)
+    for i in range(8):
+        eng.submit(Request(i, rng.integers(1, 6001, 5), k=5))
+    out = eng.run_once(rung_pin=True)
+    assert len(out) == 8 and {r.degraded for r in out} == {"rung_pin"}
+    assert eng.stats()["n_compiles"] == 1.0
+    plain = RetrievalEngine.for_seqrec(tp, tc, k=5, method="pqtopk_pruned",
+                                       calibrate=False, device="cpu")
+    assert plain.ladder is None and not plain.has_pinned
+    assert "ladder" not in plain.stats()
+    with pytest.raises(ValueError, match="pinned"):
+        plain._variant(8, 8, pinned=True)
+
+
+def test_serve_cli_pruned_prints_ladder(capsys):
+    tserve.main(["--reduced", "--requests", "12", "--max-batch", "4",
+                 "--device", "cpu", "--method", "pqtopk_pruned",
+                 "--query-grouping", "--n-groups", "2", "--bound-backend",
+                 "range", "--seed-policy", "adaptive"])
+    out = capsys.readouterr().out
+    assert "method=pqtopk_pruned" in out
+    # Two warm-up batches (buckets 1 and 4), then 12 requests in 3.
+    assert "ladder=(1,) rung_hit_fraction=0.00 rung_counts={0: 5}" in out
+    tserve.main(["--reduced", "--requests", "4", "--device", "cpu",
+                 "--method", "pqtopk_pruned", "--no-calibrate"])
+    assert "ladder=" not in capsys.readouterr().out

@@ -51,3 +51,61 @@ def test_kernels_match_plain_versions(cuda_device, code_dtype, n, m, b):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
     v, i = tops.pq_topk(gc, gs, 10)
     assert i[0, :3].tolist() == [3, n // 2, n - 1]
+
+
+@pytest.mark.parametrize("bt,k,tile", [(8, 1, 2048), (8, 16, 1000),
+                                       (16, 100, 256)])
+def test_fused_kernel_2d_table_matches_plain_version(cuda_device, bt, k,
+                                                     tile):
+    """The 2D (batch tile, slot) table: rows that differ, ``-1`` tails,
+    an all-``-1`` row, a ragged last batch tile, any tile width."""
+    n, m, b = 20_011, 8, 512
+    codes, s = _inputs(n, m, b, 3 * bt - 3, "uint16", seed=7)
+    nt = tops.n_tiles(n, tile)
+    rng = np.random.default_rng(bt + k)
+    table = np.full((3, 6), -1, np.int32)
+    table[0] = np.sort(rng.choice(nt, 6, replace=False))
+    table[1, :3] = np.sort(rng.choice(nt, 3, replace=False))
+    idx = torch.from_numpy(table)
+    gc, gs, gi = (t.to(cuda_device) for t in (codes, s, idx))
+    before = (tkernel.pq_topk_fused_cuda.launches,
+              tkernel.pq_topk_fused_cuda.launches_2d)
+    got = tops.pq_topk_slots(gc, gs, k, gi, n_items=n, tile=tile,
+                             batch_tile=bt)
+    want = tref.pq_topk_slots(codes, s, k, idx, n_items=n, tile=tile,
+                              batch_tile=bt)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    assert (tkernel.pq_topk_fused_cuda.launches,
+            tkernel.pq_topk_fused_cuda.launches_2d) == (before[0],
+                                                        before[1] + 1)
+    with pytest.raises(ValueError, match="rows"):
+        tkernel.pq_topk_fused_cuda(gc, gs, k, gi[:1].contiguous(),
+                                   n_items=n, tile=tile, batch_tile=bt)
+
+
+def test_pruned_cascade_matches_exhaustive_route(cuda_device):
+    """The cascade on the card, batch-any (1D list with ``-1`` tail) and
+    grouped (2D table), against the exhaustive fused route, bit for bit."""
+    from repro_torch.core import pruning
+    n, m, b, bq = 40_000, 8, 256, 24
+    rng = np.random.default_rng(9)
+    centers = (np.arange(n) / n * b).astype(np.int64)
+    codes = torch.from_numpy(np.clip(
+        centers[:, None] + rng.integers(-1, 2, (n, m)), 0, b - 1
+    ).astype(np.uint8)).to(cuda_device)
+    g = rng.standard_normal((bq, m, b))
+    g = np.sign(g) * np.abs(g) ** 3
+    for q in range(bq):
+        w = (q * b) // bq
+        g[q, :, max(0, w - 1):w + 3] += 6.0
+    s = torch.from_numpy(g.astype(np.float32)).to(cuda_device)
+    ev, ei = tops.pq_topk(codes, s, 10)
+    for backend in ("bitmask", "range"):
+        state = pruning.build_pruned_state(codes, b, backend=backend)
+        for grouped in (False, True):
+            v, i, st = pruning.cascade_topk_ingraph(
+                codes, s, 10, state, ladder=(2, 8), query_grouping=grouped,
+                return_stats=True)
+            assert torch.equal(v, ev) and torch.equal(i, ei)
+            assert st["n_groups"] == (3 if grouped else 1)

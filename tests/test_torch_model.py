@@ -212,10 +212,68 @@ def test_serve_topk_every_flat_method(arch):
     assert min(n_checked.values()) >= 4, n_checked
 
 
+PRUNED_CONFIGS = (("bitmask", "greedy", False), ("range", "adaptive", False),
+                  ("bitmask", "adaptive", True), ("range", "greedy", True))
+
+
 def test_serve_topk_pruned_is_slice_two():
-    _, tc, _, tp = _model("sasrec-recjpq")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tseqrec.serve_topk(tp, _t(_seqs(tc)), tc, method="pqtopk_pruned")
+    """``pqtopk_pruned`` (port slice two) through ``interop``: the
+    reference's pruned state converted field for field, both cascades on
+    a clustered catalogue of several tiles, each bound backend, seed
+    policy and grouping mode, values within 1e-5 and ids equal on clear
+    rows (counted per configuration)."""
+    from dataclasses import replace
+
+    from repro.core import pruning as jpruning
+    base_j = jcfg.get_reduced("sasrec-recjpq").model
+    n_items = 6000                                       # 3 pruning tiles
+    rng = np.random.default_rng(7)
+    centers = (np.arange(n_items + 1) / (n_items + 1) * base_j.pq.b
+               ).astype(np.int64)
+    codes = np.clip(centers[:, None] + rng.integers(-1, 2, (
+        n_items + 1, base_j.pq.m)), 0, base_j.pq.b - 1).astype(
+            base_j.pq.code_dtype)
+    seqs = _seqs(replace(base_j, n_items=n_items), bq=24, seed=5)
+    n_checked = {}
+    for backend, policy, grouped in PRUNED_CONFIGS:
+        jpq = replace(base_j.pq, bound_backend=backend, seed_policy=policy,
+                      query_grouping=grouped, n_groups=8)
+        jc = replace(base_j, n_items=n_items, pq=jpq)
+        tc = replace(tcfg.get_reduced("sasrec-recjpq").model,
+                     n_items=n_items, pq=tcfg.PQConfig(**vars(jpq)))
+        tree = _numpy_params(jc)
+        tree["item_emb"]["codes"] = codes
+        tree["item_emb"]["pruned"] = jax.tree_util.tree_map(
+            np.asarray, jpruning.build_pruned_state(
+                jnp.asarray(codes), jpq.b, 2048, backend=backend))
+        tp = params_from_jax(tree)
+        assert tp["item_emb"]["pruned"].backend == backend
+        k = 10
+        rid, rv, _ = (np.asarray(a) for a in jax.jit(
+            lambda p, s: jseqrec.serve_topk(
+                p, s, jc, k=k + 1, method="pqtopk_pruned", ladder=(1, 2),
+                return_rung=True))(
+                    jax.tree_util.tree_map(jnp.asarray, tree),
+                    jnp.asarray(seqs)))
+        ids, vals, rung = tseqrec.serve_topk(tp, _t(seqs), tc, k=k,
+                                             method="pqtopk_pruned",
+                                             ladder=(1, 2), return_rung=True)
+        assert ids.dtype == torch.int32 and tuple(ids.shape) == (24, k)
+        assert rung in (0, 1, 2)
+        np.testing.assert_allclose(vals.numpy(), rv[:, :k], **TOL)
+        gaps = -np.diff(rv, axis=1)
+        clear = np.all((gaps > 1e-4) | (gaps == 0), axis=1)
+        np.testing.assert_array_equal(ids.numpy()[clear], rid[clear, :k])
+        n_checked[(backend, policy, grouped)] = int(clear.sum())
+        # The pruned route is exact: the fused route's winners on the port.
+        fids, fvals = tseqrec.serve_topk(tp, _t(seqs), tc, k=k,
+                                         method="pqtopk_fused")
+        assert torch.equal(ids, fids) and torch.equal(vals, fvals)
+    assert min(n_checked.values()) >= 4, n_checked
+    with pytest.raises(ValueError, match="return_rung"):
+        tseqrec.serve_topk(tp, _t(seqs), tc, method="pqtopk", return_rung=True)
+    with pytest.raises(ValueError, match="pin_rung"):
+        tseqrec.serve_topk(tp, _t(seqs), tc, method="pqtopk", pin_rung=True)
 
 
 def test_interop_and_init_trees_agree():
@@ -223,9 +281,19 @@ def test_interop_and_init_trees_agree():
     tc = tcfg.get_reduced("gbert4rec-recjpq").model
     jp = jseqrec.init_seqrec(jax.random.PRNGKey(0), jc)
     tp = params_from_jax(_np_tree(jp))
-    assert "pruned" in jp["item_emb"] and "pruned" not in tp["item_emb"]
+    assert "pruned" in jp["item_emb"] and "pruned" in tp["item_emb"]
     assert tp["item_emb"]["codes"].dtype == torch.uint8
     own = tseqrec.init_seqrec(torch.Generator().manual_seed(0), tc)
+    jstate = jp["item_emb"]["pruned"]
+    for state in (tp["item_emb"]["pruned"], own["item_emb"]["pruned"]):
+        for f in ("tile", "n_items", "b", "shards", "n_local", "backend",
+                  "super_factor", "n_tiles", "nbytes"):
+            assert getattr(state, f) == getattr(jstate, f), f
+        assert state.packed.dtype == torch.int32
+        assert tuple(state.packed.shape) == jstate.packed.shape
+    np.testing.assert_array_equal(
+        tp["item_emb"]["pruned"].packed.numpy(),
+        np.asarray(jstate.packed).view(np.int32))
     jflat = jax.tree_util.tree_flatten_with_path(
         {**jp, "item_emb": {k: v for k, v in jp["item_emb"].items()
                             if k != "pruned"}})[0]
@@ -233,7 +301,8 @@ def test_interop_and_init_trees_agree():
     def walk(tree, prefix=()):
         if isinstance(tree, dict):
             for k, v in tree.items():
-                yield from walk(v, prefix + (k,))
+                if k != "pruned":
+                    yield from walk(v, prefix + (k,))
         elif isinstance(tree, list):
             for i, v in enumerate(tree):
                 yield from walk(v, prefix + (i,))

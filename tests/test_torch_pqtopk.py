@@ -128,3 +128,77 @@ def test_build_line_targets_hopper_without_fast_math(tmp_path):
     assert not any("fast" in a or "ftz" in a for a in cmd)
     assert tkernel.SOURCE.exists()
     assert str(tkernel.SOURCE) == cmd[-1]
+
+
+def _table_2d(n_tiles, bt_rows, n_slots, seed):
+    """A 2D tile table whose rows differ: ascending survivors, then ``-1``
+    tails of different lengths (one row all ``-1``)."""
+    rng = np.random.default_rng(seed)
+    table = np.full((bt_rows, n_slots), -1, np.int32)
+    for j in range(bt_rows - 1):
+        live = np.sort(rng.choice(n_tiles, size=n_slots - j - 1,
+                                  replace=False))
+        table[j, :len(live)] = live
+    return table
+
+
+@pytest.mark.parametrize("bt,k", [(8, 1), (8, 5), (16, 16)])
+def test_pq_topk_slots_2d_matches_fused_call(bt, k):
+    """The 2D (batch tile, slot) table at slot level: batch tile j's
+    queries score row j; ``-1`` entries emit (-inf, N)."""
+    n, m, b, tile = 1000, 4, 64, 128
+    n_rows = 3
+    bq = n_rows * bt
+    codes, s = _plant_ties(*_inputs(n, m, b, bq, "uint8", seed=3))
+    table = _table_2d(tops.n_tiles(n, tile), n_rows, 6, seed=bt + k)
+    jc = jops._pad_codes(jnp.asarray(codes), tile, sentinel=True)
+    rv, ri = (np.asarray(a) for a in jkernel.pq_topk_fused_call(
+        jc, jnp.asarray(s), k, tile_idx=jnp.asarray(table), n_items=n,
+        tile=tile, batch_tile=bt, interpret=True))
+    v, i = tops.pq_topk_slots(_t(codes), _t(s), k, _t(table), n_items=n,
+                              tile=tile, batch_tile=bt)
+    np.testing.assert_array_equal(v.numpy(), rv)
+    np.testing.assert_array_equal(i.numpy(), ri)
+    assert np.all(rv[-bt:] == -np.inf) and np.all(ri[-bt:] == n)
+    with pytest.raises(ValueError, match="rows"):
+        tops.pq_topk_slots(_t(codes), _t(s), k, _t(table[:2]), n_items=n,
+                           tile=tile, batch_tile=bt)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_pq_topk_tiles_and_ladder_match_reference(grouped):
+    """The cascade's scoring stage: compacted lists (1D with ``-1`` tails,
+    or 2D rows), merged across slots, against the reference's route; and
+    the rung the ladder takes for a survivor count."""
+    n, m, b, k, bq = 5000, 4, 64, 7, 24
+    codes, s = _plant_ties(*_inputs(n, m, b, bq, "int32", seed=4))
+    tile = 512
+    nt = tops.n_tiles(n, tile)
+    bt = tops.group_batch_tile(bq, 8)
+    if grouped:
+        full = _table_2d(nt, bq // bt, nt, seed=5)
+        full[:, 0] = 0                   # every row holds the tied row 3
+        full[-1, 1:] = -1
+    else:
+        full = np.full(nt, -1, np.int32)
+        full[:4] = [0, 2, 5, nt - 1]
+    jc, js = jnp.asarray(codes), jnp.asarray(s)
+    rv, ri = (np.asarray(a) for a in jops.pq_topk_tiles(
+        jc, js, k, jnp.asarray(full), tile=tile, batch_tile=bt))
+    v, i = tops.pq_topk_tiles(_t(codes), _t(s), k, _t(full), tile=tile,
+                              batch_tile=bt)
+    np.testing.assert_array_equal(v.numpy(), rv)
+    np.testing.assert_array_equal(i.numpy(), ri)
+    assert ri[0, 0] == 3                 # tied rows: the lowest id first
+    budgets = (2, 4, nt)
+    lists = [full[..., :r] for r in budgets]
+    for count in (0, 2, 3, 4, 5, nt):
+        jv, ji, jr = jops.pq_topk_tiles_ladder(
+            jc, js, k, [jnp.asarray(x) for x in lists], jnp.int32(count),
+            tile=tile, batch_tile=bt)
+        tv, ti, tr = tops.pq_topk_tiles_ladder(
+            _t(codes), _t(s), k, [_t(x) for x in lists], count, tile=tile,
+            batch_tile=bt)
+        assert tr == int(jr)
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
