@@ -13,10 +13,15 @@ items, d=512, m=8, b=512, uint16 codes; random weights from a fixed seed)
 through ``RetrievalEngine`` with the fused kernel, the scores kernel, the
 plain route and the pruned cascade (batch-any and grouped), checking every
 batch against the plain ``pqtopk`` and fused routes and each path's kernel
-launches.  Prints the card's name and power limit, kernel and per-method
-timings, a JSON line of kernel records, and last ``{"ok": true, "device":
-...}``.  Any failed phase raises and exits non-zero; without a CUDA device
-it exits non-zero before doing anything.
+launches.  Then the mutable catalogue: the fused kernel's tombstone-masked
+form (``live``) against its plain version, and a mutable engine at full
+width (capacity 2,097,152 rows) serving 100 batches with 8 catalogue
+mutations and a hot swap between batches, logged to a durable write-ahead
+log that is recovered and checked bit for bit at the end.  Prints the
+card's name and power limit, kernel and per-method timings, a JSON line of
+kernel records, and last ``{"ok": true, "device": ...}``.  Any failed phase
+raises and exits non-zero; without a CUDA device it exits non-zero before
+doing anything.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -42,6 +48,8 @@ N_REQUESTS = 6400                  # 100 full batches of 64
 MAX_BATCH = 64
 K = 10
 K_KERNEL = 16                      # the engine serves k=10 at its bucket 16
+CHURN_OPS = 8                      # catalogue mutations between batches
+ORACLE_BATCHES = 5                 # mutable batches checked against the oracle
 
 
 def card_line() -> str:
@@ -434,6 +442,7 @@ def serve_paths(params, cfg, dev):
             raise AssertionError(f"path {name} launched {got}, expected "
                                  f"{want}")
         launches[name] = got
+    stats = {name: eng.stats() for name, eng in engines.items()}
     out_plain = outs["pqtopk"]
     for rid, want in out_plain.items():
         for name in ("pqtopk_fused", "pqtopk_kernel"):
@@ -453,8 +462,7 @@ def serve_paths(params, cfg, dev):
         if want.items.shape != (K,) or not np.all(np.isfinite(want.scores)) \
                 or want.items.min() < 0 or want.items.max() > cfg.n_items:
             raise AssertionError(f"request {rid}: bad result {want}")
-    for name, eng in engines.items():
-        st = eng.stats()
+    for name, st in stats.items():
         extra = (f" ladder={st['ladder']} rung_hit_fraction="
                  f"{st['rung_hit_fraction']:.4f} rung_counts="
                  f"{st['rung_counts']}" if "ladder" in st else "")
@@ -466,7 +474,297 @@ def serve_paths(params, cfg, dev):
           "pqtopk_fused and pqtopk_kernel bit-identical to pqtopk, both "
           "pqtopk_pruned engines bit-identical to pqtopk_fused; p99 is near "
           "the slowest batch (a request's latency is its batch's)")
-    return launches
+    return launches, stats
+
+
+def live_mask(cap, n_real, tile, seed):
+    """~10% random tombstones, tile 5 fully dead, rows past ``n_real`` dead
+    (a mutable catalogue's capacity padding); rows 3 and cap/2 (planted
+    ties, see ``pq_inputs``) live."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    live = torch.rand(cap, generator=g) > 0.1
+    live[n_real:] = False
+    live[5 * tile:6 * tile] = False
+    live[[3, cap // 2]] = True
+    return live
+
+
+def check_live_kernel(dev):
+    """The fused kernel's tombstone-masked form (d) against its plain
+    version, bit-exact, on uint16 codes: the identity list at full width
+    (capacity 2,097,152, 1,271,639 real rows), and at a smaller capacity
+    the identity list, a list with ``-1`` sentinels and 2D tables at
+    batch_tile 8 and 16, at tile 2048 and 1000.  Returns the max abs
+    error."""
+    import torch
+    from repro_torch.kernels.pqtopk import kernel, ops, ref
+    err = 0.0
+    for ci, (cap, n_real) in enumerate(((2_097_152, 1_271_639),
+                                        (131_072, 100_003))):
+        full = cap > 1_000_000
+        for tile in ((2048,) if full else (2048, 1000)):
+            live = live_mask(cap, n_real, tile, seed=30 + ci).to(dev)
+            nt = ops.n_tiles(cap, tile)
+            codes, s = pq_inputs(cap, 8, 512, 64 if full else 5,
+                                 torch.uint16, seed=20 + ci, dev=dev)
+            forms = [("identity", torch.arange(nt, dtype=torch.int32), 0, s)]
+            if not full:
+                forms.append(("sentinel", torch.tensor(
+                    [-1, nt - 1, 0, -1, 5, 0, -1], dtype=torch.int32), 0, s))
+            for bt in (8, 16):
+                bq2 = 64 if full else 2 * bt + 5
+                _, s2 = pq_inputs(cap, 8, 512, bq2, torch.uint16,
+                                  seed=40 + bt + ci, dev=dev)
+                table = table_2d(nt, -(-bq2 // bt), min(nt, 40 if full else 6),
+                                 seed=bt + ci)
+                table[0, :2] = torch.tensor([0, 5])   # a live and a dead tile
+                forms.append((f"2D bt={bt}", table, bt, s2))
+            for what, idx, bt, sq in forms:
+                idx = idx.to(dev)
+                for k in ((16, 100) if full and bt == 0 else (1, 16, 100)):
+                    got = kernel.pq_topk_fused_cuda(
+                        codes, sq, k, idx, n_items=cap, tile=tile,
+                        batch_tile=bt, live=live)
+                    want = ref.pq_topk_slots(codes, sq, k, idx, n_items=cap,
+                                             tile=tile, batch_tile=bt,
+                                             live=live)
+                    err = max(err, compare(
+                        f"pq_topk_fused live {what} cap={cap} tile={tile} "
+                        f"k={k}", got, want))
+                    ids = want[1][torch.isfinite(want[0])].long()
+                    if not bool(live[ids].all()):
+                        raise AssertionError(f"live {what}: a dead id won")
+            torch.cuda.synchronize()
+            print(f"kernel check live: uint16 cap={cap} real={n_real} "
+                  f"tile={tile}: {', '.join(f[0] for f in forms)} bit-exact "
+                  "(10% tombstones, a dead tile, dead padding)")
+    return err
+
+
+def left_padded(histories, seq_len):
+    """The engine's batch layout: histories left-padded with id 0."""
+    import numpy as np
+    seqs = np.zeros((len(histories), seq_len), np.int32)
+    for i, h in enumerate(histories):
+        t = np.asarray(h)[-seq_len:]
+        seqs[i, -len(t):] = t
+    return seqs
+
+
+def masked_oracle(params, cfg, mstate, histories):
+    """The plain masked exhaustive route on the card: every capacity row
+    scored (plain ``pq_scores``), dead rows -inf, stable top-K, ``-inf``
+    winners -> the capacity id.  -> (vals, ids) numpy."""
+    import torch
+    from repro_torch.core import scoring, topk as topk_lib
+    from repro_torch.kernels.pqtopk import ref
+    from repro_torch.models import seqrec
+    head = {**params["item_emb"], **mstate.head_arrays()}
+    seqs = torch.from_numpy(left_padded(histories, cfg.max_seq_len)).to(
+        mstate.codes.device)
+    with torch.inference_mode():
+        phi = seqrec.sequence_embedding({**params, "item_emb": head}, seqs,
+                                         cfg)
+        s = scoring.subid_scores(head["sub_emb"], phi)
+        sc = torch.where(mstate.live[None, :], ref.pq_scores(mstate.codes, s),
+                         float("-inf"))
+        v, i = topk_lib.topk(sc, K)
+        i = torch.where(v == float("-inf"), mstate.cap, i)
+    return v.cpu().numpy(), i.cpu().numpy()
+
+
+def serve_mutable(engine, mstate, params, cfg, histories, log, seed):
+    """Serve ``histories`` in batches of MAX_BATCH; after each batch check
+    that no dead id was returned (and, for the first ORACLE_BATCHES, that
+    the batch equals the masked oracle bit for bit), then draw CHURN_OPS
+    mutations (the serve launcher's mix), commit them to ``log`` and swap
+    the head.  Returns (results, swaps, batches)."""
+    import numpy as np
+    from repro_torch.launch.serve import _churn_ops
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed)
+    out, swaps, n_batches = {}, 0, 0
+    for i in range(0, len(histories), MAX_BATCH):
+        batch = histories[i:i + MAX_BATCH]
+        for j, h in enumerate(batch, start=i):
+            engine.submit(Request(j, h, k=K))
+        res = engine.drain()
+        live = mstate.live.cpu().numpy()
+        for r in res:
+            if r.shed or r.items.shape != (K,) or not live[r.items].all():
+                raise AssertionError(f"mutable request {r.request_id}: "
+                                     f"shed or a dead item {r.items}")
+        if n_batches < ORACLE_BATCHES:
+            ov, oi = masked_oracle(params, cfg, mstate, batch)
+            for r in res:
+                q = r.request_id - i
+                if not (np.array_equal(r.items, oi[q])
+                        and np.array_equal(r.scores, ov[q])):
+                    raise AssertionError(f"mutable batch {n_batches} request "
+                                         f"{r.request_id} differs from the "
+                                         "masked oracle")
+        out.update((r.request_id, r) for r in res)
+        n_batches += 1
+        ops = _churn_ops(mstate, rng, CHURN_OPS, cfg.pq.b)
+        log.append_many(ops)
+        log.maybe_snapshot(mstate)
+        engine.swap_head_state(mstate)
+        swaps += 1
+    return out, swaps, n_batches
+
+
+def mutable_path(params, cfg, dev, n_sms, frozen_stats):
+    """The mutable catalogue at full width: a bitmask engine over 100
+    batches (oracle checks, launch counts, constant serve variants, the
+    durable log and its recovery), a range engine over fewer batches, the
+    masked cascade's time split and the live kernel's record."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pruning, scoring
+    from repro_torch.core.mutation import MutableHeadState
+    from repro_torch.kernels.pqtopk import kernel, ref
+    from repro_torch.models import seqrec
+    from repro_torch.serving.catalogue_log import CatalogueLog
+    from repro_torch.serving.engine import RetrievalEngine
+    out = {}
+    with tempfile.TemporaryDirectory() as log_dir:
+        for backend, n_req in (("bitmask", N_REQUESTS), ("range", 1280)):
+            t0 = time.monotonic()
+            mstate = MutableHeadState.build(params["item_emb"]["codes"],
+                                            cfg.pq.b, backend=backend)
+            eng = RetrievalEngine.for_seqrec_mutable(
+                params, cfg, mstate, k=K, max_batch=MAX_BATCH, device=dev)
+            serve(eng, request_stream(cfg, MAX_BATCH + 1, seed=1))  # warm-up
+            eng.latencies_ms.clear()
+            eng.rung_counts.clear()
+            n_compiles = eng.stats()["n_compiles"]
+            print(f"mutable {backend}: capacity={mstate.cap} tiles="
+                  f"{mstate.state.n_tiles} ladder={eng.ladder} built in "
+                  f"{time.monotonic() - t0:.1f}s")
+            log = CatalogueLog(os.path.join(log_dir, backend),
+                               snapshot_every=300)
+            log.snapshot(mstate)
+            kernel.pq_scores_cuda.launches = 0
+            kernel.pq_topk_fused_cuda.launches = 0
+            kernel.pq_topk_fused_cuda.launches_2d = 0
+            kernel.pq_topk_fused_cuda.launches_live = 0
+            res, swaps, n_batches = serve_mutable(
+                eng, mstate, params, cfg, request_stream(cfg, n_req, seed=3),
+                log, seed=4)
+            got = {"pq_topk_fused_live": kernel.pq_topk_fused_cuda.launches_live,
+                   "pq_topk_fused": kernel.pq_topk_fused_cuda.launches,
+                   "pq_topk_fused_2d": kernel.pq_topk_fused_cuda.launches_2d,
+                   "pq_scores": kernel.pq_scores_cuda.launches}
+            want = {"pq_topk_fused_live": n_batches, "pq_topk_fused": 0,
+                    "pq_topk_fused_2d": 0, "pq_scores": n_batches}
+            print(f"path pqtopk_pruned_mutable {backend}: launches {got}")
+            if got != want:
+                raise AssertionError(f"mutable {backend} launched {got}, "
+                                     f"expected {want}")
+            st = eng.stats()
+            if st["n_compiles"] != n_compiles or st["n_swaps"] != swaps:
+                raise AssertionError(
+                    f"mutable {backend}: n_compiles {n_compiles} -> "
+                    f"{st['n_compiles']}, n_swaps {st['n_swaps']} != {swaps}")
+            print(f"engine pqtopk_pruned_mutable {backend}: served "
+                  f"{int(st['count'])} in {n_batches} batches mRT="
+                  f"{st['mRT_ms']:.3f}ms p99={st['p99_ms']:.3f}ms "
+                  f"rung_hit_fraction={st['rung_hit_fraction']:.4f} "
+                  f"n_compiles={int(st['n_compiles'])} n_swaps="
+                  f"{int(st['n_swaps'])} n_live={mstate.n_live} "
+                  f"stale_tiles={int(mstate.stats()['stale_tiles'])}; no dead "
+                  f"id, first {ORACLE_BATCHES} batches bit-identical to the "
+                  "masked oracle")
+            out[backend] = (mstate, got)
+            # ---- durability: recover the log, bit for bit -----------
+            log.close()
+            t0 = time.monotonic()
+            rec, lsn = CatalogueLog(os.path.join(log_dir, backend)).recover(
+                device=dev, verify=True)
+            want_state = mstate.clone()
+            want_state.retighten()
+            same = (lsn == log.lsn and rec.free == mstate.free
+                    and rec.n_rows == mstate.n_rows
+                    and torch.equal(rec.codes, mstate.codes)
+                    and torch.equal(rec.live, mstate.live)
+                    and all(torch.equal(a, b) for a, b in zip(
+                        rec.state.meta_arrays(),
+                        want_state.state.meta_arrays())))
+            if not same:
+                raise AssertionError(f"durability {backend}: recovered state "
+                                     "differs from the in-memory one")
+            ls = log.stats()
+            print(f"durability {backend}: lsn={lsn} snapshots="
+                  f"{int(ls['n_snapshots'])} latest_snapshot_lsn="
+                  f"{int(ls['latest_snapshot_lsn'])} log_bytes="
+                  f"{int(ls['log_bytes'])}; recovered (verify) bit-identical "
+                  f"to the in-memory state in {time.monotonic() - t0:.1f}s")
+    fz = frozen_stats["pqtopk_pruned"]
+    print(f"engine pqtopk_pruned (frozen, same run): mRT={fz['mRT_ms']:.3f}ms "
+          f"p99={fz['p99_ms']:.3f}ms rung_hit_fraction="
+          f"{fz['rung_hit_fraction']:.4f}")
+
+    # ---- the masked cascade on one batch: split and the live kernel ----
+    mstate, launches = out["bitmask"][0], out["bitmask"][1]
+    head = {**params["item_emb"], **mstate.head_arrays()}
+    rng = np.random.default_rng(5)
+    seqs = torch.from_numpy(rng.integers(
+        1, cfg.n_items + 1, (MAX_BATCH, cfg.max_seq_len)).astype(np.int32)
+    ).to(dev)
+    codes, live, cap = mstate.codes, mstate.live, mstate.cap
+    m, b = codes.shape[1], cfg.pq.b
+    with torch.inference_mode():
+        phi = seqrec.sequence_embedding({**params, "item_emb": head}, seqs,
+                                         cfg)
+        s = scoring.subid_scores(head["sub_emb"], phi).contiguous()
+        for backend in ("bitmask", "range"):
+            st = out[backend][0].state
+            _, _, cs = pruning.cascade_topk_ingraph(
+                out[backend][0].codes, s, K_KERNEL, st,
+                live=out[backend][0].live, return_stats=True)
+            print(f"mutable cascade {backend}: n_tiles={cs['n_tiles']} "
+                  f"n_survived={cs['n_survived']} n_scored={cs['n_scored']}")
+        state = mstate.state
+        tile = state.tile
+        bounds = pruning.tile_bounds(state, s)
+        theta = pruning.theta_seed_ingraph(codes, s, bounds, K_KERNEL,
+                                           tile=tile, live=live)[0]
+        slots, count = pruning.compact_mask(pruning.survival_mask(bounds,
+                                                                  theta))
+        whole = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pruning.cascade_topk_ingraph(codes, s, K_KERNEL, state, live=live)
+            torch.cuda.synchronize()
+            whole.append((time.perf_counter() - t0) * 1e3)
+        kern = lambda: kernel.pq_topk_fused_cuda(
+            codes, s, K_KERNEL, slots, n_items=cap, tile=tile, live=live)
+        split = {"bounds": time_ms(lambda: pruning.tile_bounds(state, s), 10),
+                 "theta": time_ms(lambda: pruning.theta_seed_ingraph(
+                     codes, s, bounds, K_KERNEL, tile=tile, live=live), 10),
+                 "kernel": time_ms(kern, 20)}
+        plain = time_ms(lambda: ref.pq_topk_slots(
+            codes, s, K_KERNEL, slots, n_items=cap, tile=tile, live=live), 3)
+        print(f"split mutable batch-any (bitmask, greedy, B={MAX_BATCH}, "
+              f"{slots.numel()} slots, {int(count)} survivors): "
+              + ", ".join(f"{k} {v:.4f}ms" for k, v in split.items())
+              + f"; whole cascade {statistics.median(whole):.4f}ms host clock")
+    # Work this list needs: every row of a listed tile reads its live byte;
+    # only live rows read their codes and look up S.
+    tiles = [t for t in slots.tolist() if t >= 0]
+    rows = sum(min(tile, cap - t * tile) for t in tiles)
+    live_rows = int(live.view(-1, tile)[tiles].sum())
+    nbytes = (rows + live_rows * m * 2 + MAX_BATCH * m * b * 4
+              + slots.numel() * 4 + MAX_BATCH * slots.numel() * K_KERNEL * 8)
+    pairs = MAX_BATCH * live_rows
+    bnd, by, terms = bound_ms(nbytes, pairs * (m - 1), pairs * m, n_sms)
+    print(f"bound pq_topk_fused_live: {terms} ms ({pairs} scored query-item "
+          f"pairs, {len(tiles)} of {slots.numel()} slots listed)")
+    return {"ms": split["kernel"], "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by,
+            "launches": launches["pq_topk_fused_live"]}
 
 
 def main() -> int:
@@ -503,6 +801,7 @@ def main() -> int:
             print(f"ptxas {name}<uint16, m=8>: {line.split(':', 1)[1].strip()}")
 
     max_err = check_kernels(dev)
+    max_err["pq_topk_fused_live"] = check_live_kernel(dev)
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     forms = skewed_cascade(dev, n_sms)
 
@@ -515,7 +814,8 @@ def main() -> int:
     print(f"init: {cfg.name} N={cfg.n_items} d={cfg.d_model} m={cfg.pq.m} "
           f"b={cfg.pq.b} codes={params['item_emb']['codes'].dtype} in "
           f"{time.monotonic() - t0:.1f}s")
-    launches = serve_paths(params, cfg, dev)
+    launches, path_stats = serve_paths(params, cfg, dev)
+    live_rec = mutable_path(params, cfg, dev, n_sms, path_stats)
 
     # ---- every method once, on one full batch ------------------------
     rng = np.random.default_rng(2)
@@ -615,6 +915,11 @@ def main() -> int:
         "launches": launches["pqtopk_pruned_grouped"]["pq_topk_fused_2d"],
         "max_abs_err": max_err["pq_topk_fused_2d"],
         **forms["pq_topk_fused_2d"], "library_ms": None})
+    recs.append({
+        "name": "pq_topk_fused_live", "route": "cuda", "source": src,
+        "replaces": "src/repro/kernels/pqtopk/kernel.py:148",
+        "max_abs_err": max_err["pq_topk_fused_live"], **live_rec,
+        "library_ms": None})
     for r in recs:
         print(f"kernel {r['name']}: {r['ms']:.4f}ms plain {r['plain_ms']:.4f}"
               f"ms bound {r['bound_ms']:.4f}ms ({r['bound_by']}) library "

@@ -22,8 +22,10 @@ holds it.  No result differs.
 Presence words are ``int32`` holding the reference's ``uint32`` bit
 patterns (PyTorch gives ``uint32`` few operations).  Every top-k here is
 :func:`repro_torch.core.topk.topk` (ties to the lowest index, as
-``lax.top_k``).  Super-tiles, the sharded layout and the tombstone mask
-are later slices: they raise ``NotImplementedError``.
+``lax.top_k``).  The mutable catalogue's ``live`` tombstone mask is
+threaded through the masked builds, theta seeding and the fused kernel.
+Super-tiles and the sharded layout are later slices: they raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -69,11 +71,9 @@ ARRAY_FIELDS = ("packed", "code_lo", "code_hi", "super_packed", "super_lo",
                 "super_hi")
 
 _SUPER_SLICE = ("hierarchical super-tiles (super_factor > 1) are a later "
-                "port slice and not ported yet")
+                "port slice (ROADMAP queue A 1) and not ported yet")
 _SHARD_SLICE = ("the sharded pruned layout (shards > 1) is a later port "
                 "slice and not ported yet")
-_LIVE_SLICE = ("the tombstone mask ('live', the mutable catalogue) is a "
-               "later port slice and not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -109,11 +109,19 @@ def unpack_presence(packed: torch.Tensor, b: int) -> torch.Tensor:
     return bits.reshape(t, m, w * _WORD)[..., :b] != 0
 
 
-def _build_present(codes: torch.Tensor, b: int, tile: int) -> torch.Tensor:
-    """present[t, k, j] iff sub-id j occurs in split k of tile t."""
+def _build_present_masked(codes: torch.Tensor, live: Optional[torch.Tensor],
+                          b: int, tile: int) -> torch.Tensor:
+    """present[t, k, j] iff sub-id j occurs in split k of a live row of tile
+    t.  Dead rows (tombstones, a mutable catalogue's capacity padding) add
+    no bits, so the result equals a fresh build over the live items alone;
+    ``live=None`` counts every row."""
     n, m = codes.shape
-    t_ids = torch.arange(n, device=codes.device) // tile
+    rows = torch.arange(n, device=codes.device)
     idx = pq_lib.widen(codes)
+    if live is not None:
+        keep = live.to(codes.device).bool()
+        rows, idx = rows[keep], idx[keep]
+    t_ids = rows // tile
     present = torch.zeros((-(-n // tile), m, b), dtype=torch.bool,
                           device=codes.device)
     for k in range(m):
@@ -121,22 +129,30 @@ def _build_present(codes: torch.Tensor, b: int, tile: int) -> torch.Tensor:
     return present
 
 
-def _build_code_ranges(codes: torch.Tensor, tile: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-(tile, split) min/max codes -> ((T, m) int16 lo, (T, m) hi).
-    Tile-alignment padding rows are excluded (filled with the min/max
-    identities), and ``hi >= lo`` is kept."""
+def _build_code_ranges_masked(codes: torch.Tensor,
+                              live: Optional[torch.Tensor], tile: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(tile, split) min/max codes of the live rows -> ((T, m) int16 lo,
+    (T, m) hi).  Dead rows and tile-alignment padding are excluded (filled
+    with the min/max identities); ``live=None`` counts every row.  A tile
+    with no live row would come out lo=32767 > hi=0: it is clamped to the
+    one-code range [0, 0], so the segment-max gathers stay in bounds (its
+    bound is then the code-0 max, sound for a tile the live mask removes
+    from the top-k anyway)."""
     n, m = codes.shape
     n_tiles = -(-n // tile)
     c = pq_lib.widen(codes)
     pad = n_tiles * tile - n
+    real = (torch.ones(n, dtype=torch.bool, device=codes.device)
+            if live is None else live.to(codes.device).bool())
     if pad:
         c = F.pad(c, (0, 0, 0, pad))
+        real = F.pad(real, (0, pad))
     c3 = c.reshape(n_tiles, tile, m)
-    real = (torch.arange(n_tiles * tile, device=codes.device) < n
-            ).reshape(n_tiles, tile, 1)
+    real = real.reshape(n_tiles, tile, 1)
     lo = torch.where(real, c3, 2 ** 15 - 1).amin(dim=1)
     hi = torch.where(real, c3, 0).amax(dim=1)
+    lo = torch.minimum(lo, hi)
     hi = torch.maximum(hi, lo)
     return lo.to(torch.int16), hi.to(torch.int16)
 
@@ -207,25 +223,38 @@ def build_pruned_state(codes: torch.Tensor, b: int,
                        super_factor: int = 0) -> PrunedHeadState:
     """Head-build-time constructor of the flat state, on ``codes``'s
     device."""
+    if shards > 1:
+        raise NotImplementedError(_SHARD_SLICE)
+    if super_factor > 1:
+        raise NotImplementedError(_SUPER_SLICE)
+    return build_pruned_state_masked(codes, None, b, tile, backend=backend)
+
+
+def build_pruned_state_masked(codes: torch.Tensor,
+                              live: Optional[torch.Tensor], b: int,
+                              tile: int = DEFAULT_PRUNE_TILE, *,
+                              backend: str = "bitmask") -> PrunedHeadState:
+    """Flat state whose metadata covers the LIVE rows only: the mutable
+    catalogue's fresh-build and re-tighten oracle (:mod:`mutation`).
+    ``live=None`` is every row live, which is :func:`build_pruned_state`."""
     if backend not in BOUND_BACKENDS:
         raise ValueError(f"unknown bound backend {backend!r}; "
                          f"one of {BOUND_BACKENDS}")
     if backend == "range" and b > 2 ** 15:
         raise ValueError(f"bound backend 'range' stores int16 ranges; "
                          f"b={b} exceeds int16")
-    if shards > 1:
-        raise NotImplementedError(_SHARD_SLICE)
-    if super_factor > 1:
-        raise NotImplementedError(_SUPER_SLICE)
     n = codes.shape[0]
+    if live is not None and tuple(live.shape) != (n,):
+        raise ValueError(f"live mask shape {tuple(live.shape)} != ({n},)")
     t = max(1, min(int(tile), n))
     if backend == "range":
-        lo, hi = _build_code_ranges(codes, t)
+        lo, hi = _build_code_ranges_masked(codes, live, t)
         return PrunedHeadState(None, tile=t, n_items=n, b=b, shards=1,
                                n_local=n, backend="range", code_lo=lo,
                                code_hi=hi)
-    return PrunedHeadState(pack_presence(_build_present(codes, b, t)),
-                           tile=t, n_items=n, b=b, shards=1, n_local=n)
+    return PrunedHeadState(
+        pack_presence(_build_present_masked(codes, live, b, t)),
+        tile=t, n_items=n, b=b, shards=1, n_local=n)
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +379,16 @@ def _tile_rows(tile_ids: torch.Tensor, tile: int, n: int):
     return gid, gid.clamp(max=n - 1)
 
 
+def _valid(gid: torch.Tensor, safe: torch.Tensor, n: int,
+           live: Optional[torch.Tensor]) -> torch.Tensor:
+    """Which of the rows ``gid`` (clamped: ``safe``) a seed may score: those
+    inside the catalogue and, with a tombstone mask, alive."""
+    ok = gid < n
+    if live is not None:
+        ok &= live[safe].bool()
+    return ok
+
+
 def _mean(mask: torch.Tensor) -> torch.Tensor:
     """Mean of a bool mask as the reference's ``jnp.mean`` rounds it on
     the CPU: the count times the float32 reciprocal of the size."""
@@ -387,7 +426,8 @@ def theta_seed_ingraph(codes: torch.Tensor, s: torch.Tensor,
                        seed_tiles: int = DEFAULT_SEED_TILES,
                        seed_max_tiles: int = DEFAULT_SEED_MAX_TILES,
                        seed_stab_tol: float = DEFAULT_SEED_STAB_TOL,
-                       degenerate: Optional[torch.Tensor] = None):
+                       degenerate: Optional[torch.Tensor] = None,
+                       live: Optional[torch.Tensor] = None):
     """Batch-shared theta seeding -> (theta (B,), n_seed_used int,
     survival estimate f32 0-d tensor).
 
@@ -395,7 +435,9 @@ def theta_seed_ingraph(codes: torch.Tensor, s: torch.Tensor,
     each query's k-th best value: at least k items reach it.  The seed
     rows go through :func:`ops.pq_scores` (the CUDA kernel on the card).
     ``adaptive`` grows the seed set geometrically until the survival
-    estimate is stable."""
+    estimate is stable.  ``live`` (N,) excludes dead rows from the seed
+    scores: a dead high-scorer would certify a theta that live items
+    cannot reach, and the cascade would no longer be exact."""
     n = codes.shape[0]
     bq = s.shape[0]
     n_tiles = bounds.shape[1]
@@ -408,7 +450,8 @@ def theta_seed_ingraph(codes: torch.Tensor, s: torch.Tensor,
         gid, safe = _tile_rows(tile_ids, tile, n)
         rows = pq_lib.take_rows(codes, safe.reshape(-1)).contiguous()
         sc = kernel_ops.pq_scores(rows, s)
-        return torch.where((gid.reshape(-1) < n)[None, :], sc, NEG_INF)
+        return torch.where(_valid(gid, safe, n, live).reshape(-1)[None, :],
+                           sc, NEG_INF)
 
     return _seed_stages(score_chunk, order, sizes, k, bq,
                         lambda th: _mean(survival_mask(bounds, th)),
@@ -433,10 +476,12 @@ def theta_seed_perquery(codes: torch.Tensor, s: torch.Tensor,
                         seed_tiles: int = DEFAULT_SEED_TILES,
                         seed_max_tiles: int = DEFAULT_SEED_MAX_TILES,
                         seed_stab_tol: float = DEFAULT_SEED_STAB_TOL,
-                        degenerate: Optional[torch.Tensor] = None):
+                        degenerate: Optional[torch.Tensor] = None,
+                        live: Optional[torch.Tensor] = None):
     """Per-query theta seeding: each query scores its OWN most promising
     tiles (plain PyTorch gathers from its S row, in ``tree_sum`` order) ->
-    (theta (B,), n_seed_used int, mean per-query survival f32 0-d)."""
+    (theta (B,), n_seed_used int, mean per-query survival f32 0-d).
+    ``live`` excludes dead rows, as in :func:`theta_seed_ingraph`."""
     n, m = codes.shape
     bq = s.shape[0]
     n_tiles = bounds.shape[1]
@@ -452,7 +497,8 @@ def theta_seed_perquery(codes: torch.Tensor, s: torch.Tensor,
                            ).reshape(bq, -1, m)
         sc = tree_sum([torch.gather(s[:, kk, :], 1, sel[:, :, kk])
                        for kk in range(m)])
-        return torch.where(gid.reshape(bq, -1) < n, sc, NEG_INF)
+        return torch.where(_valid(gid, safe, n, live).reshape(bq, -1), sc,
+                           NEG_INF)
 
     return _seed_stages(
         score_chunk, order, sizes, k, bq,
@@ -612,13 +658,20 @@ def cascade_topk_ingraph(codes: torch.Tensor, s: torch.Tensor, k: int,
     survival, queries bucketed into groups, and a 2D (batch tile, slot)
     table so each batch tile scores only its group's survivors.
 
+    ``live`` (N,) bool is the mutable catalogue's tombstone mask: dead rows
+    (delisted items, capacity padding) are kept out of theta seeding and
+    score ``-inf`` inside the fused kernel, and ``-inf`` winners get the id
+    N.  Stale (loosened) bounds still dominate every live item's score, so
+    the result equals a cascade over a freshly rebuilt live-only head.
+
     ``stats`` has exactly :data:`STATS_KEYS`; the seed survival estimate
     stays a 0-d device tensor, everything else is a host value."""
-    if live is not None:
-        raise NotImplementedError(_LIVE_SLICE)
     if state is None:
         state = build_pruned_state(codes, int(s.shape[-1]), tile)
     _check_flat(state)
+    if live is not None and live.shape[0] != codes.shape[0]:
+        raise ValueError(f"live mask covers {live.shape[0]} rows but the "
+                         f"catalogue has {codes.shape[0]}")
     tile = state.tile
     bq = s.shape[0]
     t_total = state.n_tiles
@@ -629,7 +682,7 @@ def cascade_topk_ingraph(codes: torch.Tensor, s: torch.Tensor, k: int,
         rungs = rungs[:1]
     seed_kw = dict(tile=tile, seed_policy=seed_policy, seed_tiles=seed_tiles,
                    seed_max_tiles=seed_max_tiles, seed_stab_tol=seed_stab_tol,
-                   degenerate=degenerate_tile_mask(state))
+                   degenerate=degenerate_tile_mask(state), live=live)
     bounds = tile_bounds(state, s)
     if query_grouping and n_groups > 1:
         bt = kernel_ops.group_batch_tile(bq, n_groups)
@@ -644,7 +697,7 @@ def cascade_topk_ingraph(codes: torch.Tensor, s: torch.Tensor, k: int,
         max_group = max(group_counts)
         vals, ids, rung = kernel_ops.pq_topk_tiles_ladder(
             codes, s[perm], k, [slots2d[:, :r] for r in rungs], max_group,
-            tile=tile, batch_tile=bt)
+            tile=tile, batch_tile=bt, live=live)
         vals, ids = vals[inv], ids[inv]
         n_bt = len(group_counts)
         pairs_scored = sum(group_counts) * bt
@@ -656,7 +709,8 @@ def cascade_topk_ingraph(codes: torch.Tensor, s: torch.Tensor, k: int,
         slots_full, count_t = compact_mask(survival_mask(bounds, theta))
         count = max_group = int(count_t)            # the one host read
         vals, ids, rung = kernel_ops.pq_topk_tiles_ladder(
-            codes, s, k, [slots_full[:r] for r in rungs], count, tile=tile)
+            codes, s, k, [slots_full[:r] for r in rungs], count, tile=tile,
+            live=live)
         bt = kernel_ops.effective_batch_tile(bq)
         pairs_scored = pairs_union = count * (-(-bq // bt) * bt)
         n_groups_eff = 1
@@ -689,8 +743,8 @@ def survival_count(codes: torch.Tensor, s: torch.Tensor, k: int,
                    seed_policy: str = "greedy",
                    seed_tiles: int = DEFAULT_SEED_TILES,
                    seed_max_tiles: int = DEFAULT_SEED_MAX_TILES,
-                   seed_stab_tol: float = DEFAULT_SEED_STAB_TOL
-                   ) -> torch.Tensor:
+                   seed_stab_tol: float = DEFAULT_SEED_STAB_TOL,
+                   live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Surviving-tile count of one batch (0-d int32): the bounds + theta
     prefix of the batch-any cascade, no scoring pass."""
     _check_flat(state)
@@ -698,7 +752,8 @@ def survival_count(codes: torch.Tensor, s: torch.Tensor, k: int,
     theta, _, _ = theta_seed_ingraph(
         codes, s, bounds, k, tile=state.tile, seed_policy=seed_policy,
         seed_tiles=seed_tiles, seed_max_tiles=seed_max_tiles,
-        seed_stab_tol=seed_stab_tol, degenerate=degenerate_tile_mask(state))
+        seed_stab_tol=seed_stab_tol, degenerate=degenerate_tile_mask(state),
+        live=live)
     return survival_mask(bounds, theta).sum(dtype=torch.int32)
 
 
@@ -708,7 +763,8 @@ def survival_count_grouped(codes: torch.Tensor, s: torch.Tensor, k: int,
                            seed_policy: str = "greedy",
                            seed_tiles: int = DEFAULT_SEED_TILES,
                            seed_max_tiles: int = DEFAULT_SEED_MAX_TILES,
-                           seed_stab_tol: float = DEFAULT_SEED_STAB_TOL
+                           seed_stab_tol: float = DEFAULT_SEED_STAB_TOL,
+                           live: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Largest per-group surviving-tile count of one batch (0-d int32):
     the observable the grouped ladder escalates on."""
@@ -719,7 +775,8 @@ def survival_count_grouped(codes: torch.Tensor, s: torch.Tensor, k: int,
     theta, _, _ = theta_seed_perquery(
         codes, s, bounds, k, tile=state.tile, seed_policy=seed_policy,
         seed_tiles=seed_tiles, seed_max_tiles=seed_max_tiles,
-        seed_stab_tol=seed_stab_tol, degenerate=degenerate_tile_mask(state))
+        seed_stab_tol=seed_stab_tol, degenerate=degenerate_tile_mask(state),
+        live=live)
     _, _, _, counts = group_and_compact(
         survival_mask_perquery(bounds, theta), n_groups=n_groups,
         batch_tile=batch_tile)

@@ -8,6 +8,9 @@ b=512).  The pruned-cascade metadata ``item_emb.pruned`` (the reference's
 ``PrunedHeadState``, a dataclass) becomes the port's
 :class:`~repro_torch.core.pruning.PrunedHeadState`, field for field; its
 ``uint32`` presence words are carried as ``int32`` with the same bits.
+``mutable_state_from_jax`` carries a reference ``MutableHeadState`` over
+whole (codes, live mask, pruning metadata and host bookkeeping), so both
+packages can start from one mutable catalogue.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.mutation import MutableHeadState
 from repro_torch.core.pruning import ARRAY_FIELDS, PrunedHeadState
 
 
@@ -45,6 +49,20 @@ def pruned_state_from_jax(state: Any, device="cpu") -> PrunedHeadState:
         if fields[name] is not None:
             fields[name] = _array(fields[name], device)
     return PrunedHeadState(**fields)
+
+
+def mutable_state_from_jax(mstate: Any, device="cpu") -> MutableHeadState:
+    """The reference's ``MutableHeadState`` -> the port's, on ``device``:
+    codes, live mask, the flat pruning state, staleness, the freelist in
+    order, the slot high-water mark and the mutation count."""
+    out = MutableHeadState(
+        _array(mstate.codes, device),
+        _array(mstate.live, device),
+        pruned_state_from_jax(mstate.state, device),
+        staleness=np.array(mstate.staleness, np.int64),
+        free=[int(x) for x in mstate.free], n_rows=int(mstate.n_rows))
+    out.n_mutations = int(mstate.n_mutations)
+    return out
 
 
 def _convert(tree: Any, device) -> Any:

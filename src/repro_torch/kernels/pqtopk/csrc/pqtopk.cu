@@ -14,17 +14,24 @@
 //
 // pq_topk_fused_kernel replaces the TPU kernel
 //   src/repro/kernels/pqtopk/kernel.py: pq_topk_fused_kernel / _tile_topk
-//   (launched by pq_topk_fused_call, no live mask) in three of its forms:
+//   (launched by pq_topk_fused_call) in all four of its forms:
 //   (a) a 1D identity tile_idx (the exhaustive pqtopk_fused route);
 //   (b) a 1D compacted tile_idx with -1 sentinel slots at its tail (the
 //       batch-any pqtopk_pruned route, kernel.py:170-173);
 //   (c) a 2D (n_batch_tiles, n_slots) table (the grouped pqtopk_pruned
 //       route, kernel.py:156-159): query q's slot i scores tile
-//       tile_idx[(q / batch_tile) * n_slots + i].
+//       tile_idx[(q / batch_tile) * n_slots + i];
+//   (d) any of these with the `live` tombstone mask (the mutable
+//       catalogue, kernel.py:148-155, :183-186, :279-285).  The TPU streams
+//       an (N/tile, tile) int8 block beside each codes tile under the same
+//       clamped index map; here `live` is a flat (n_rows,) byte array and
+//       the thread that scores item g reads live[g] (1 byte beside the
+//       item's m codes), so a dead item scores -inf inside the tile top-k.
+//       A null pointer means no mask.
 //   Per (item-tile slot, query chunk): score the tile into shared memory,
-//   mask ids >= n_items to -inf, write the tile's exact top-K per query with
-//   global ids, ties to the lowest id; a slot whose tile_idx is -1 writes
-//   (-inf, n_items).  Output (B, n_slots, K) f32 + i32; the cross-slot merge
+//   mask ids >= n_items (and dead rows) to -inf, write the tile's exact
+//   top-K per query with global ids, ties to the lowest id; a slot whose
+//   tile_idx is -1 writes (-inf, n_items).  Output (B, n_slots, K) f32 + i32; the cross-slot merge
 //   is left to the caller.  In the 2D form a query chunk never straddles two
 //   rows (its size divides batch_tile), so a block reads one row.
 //   Bound: operations.  It reads N*m codes (once per query chunk, mostly
@@ -38,7 +45,8 @@
 //   with the best of each group of 8 cached, so taking a column rescans
 //   only its group.  For (b) and (c) the work is data-dependent: the bound
 //   counts only the scored (slot, query) pairs, pairs_scored x tile x m
-//   shared-memory lookups of S (sentinel slots exit at once).
+//   shared-memory lookups of S (sentinel slots exit at once).  Form (d)
+//   adds one byte per scored item to its m code bytes, and no lookups.
 //
 // Both kernels reduce the m per-split partials in exactly the reference's
 // tree_sum order (pairs, odd tail appended), and the build uses no fast-math
@@ -185,6 +193,7 @@ template <typename CT, int M>
 __global__ void __launch_bounds__(kThreads)
 pq_topk_fused_kernel(const CT* __restrict__ codes, const float* __restrict__ s,
                      const int* __restrict__ tile_idx,
+                     const uint8_t* __restrict__ live,
                      float* __restrict__ out_v, int* __restrict__ out_i,
                      int n_rows, int n_items, int m_rt, int b, int bq,
                      int n_slots, int tile, int k, int qb, int batch_tile) {
@@ -223,7 +232,7 @@ pq_topk_fused_kernel(const CT* __restrict__ codes, const float* __restrict__ s,
     const long long base = static_cast<long long>(t_id) * tile;
     for (int t = threadIdx.x; t < tile; t += blockDim.x) {
       const long long g = base + t;
-      if (g >= n_items || g >= n_rows) {
+      if (g >= n_items || g >= n_rows || (live && !live[g])) {
         for (int q = 0; q < nq; ++q) sc[q * tile + t] = -INFINITY;
         continue;
       }
@@ -334,9 +343,9 @@ int launch_scores(const void* codes, const float* s, float* out, int n, int m,
 
 template <typename CT, int M>
 int launch_topk(const void* codes, const float* s, const int* tile_idx,
-                float* out_v, int* out_i, int n_rows, int n_items, int m,
-                int b, int bq, int n_slots, int tile, int k, int batch_tile,
-                cudaStream_t stream) {
+                const uint8_t* live, float* out_v, int* out_i, int n_rows,
+                int n_items, int m, int b, int bq, int n_slots, int tile,
+                int k, int batch_tile, cudaStream_t stream) {
   int qb = qb_for((m * b + tile) * 4, bq, 100 * 1024);
   if (batch_tile > 0) {            // 2D: a chunk must not straddle two rows
     qb = qb < batch_tile ? qb : batch_tile;
@@ -354,7 +363,7 @@ int launch_topk(const void* codes, const float* s, const int* tile_idx,
                             &gx);
   if (rc != 0) return rc;
   pq_topk_fused_kernel<CT, M><<<dim3(gx, ny), kThreads, smem, stream>>>(
-      static_cast<const CT*>(codes), s, tile_idx, out_v, out_i, n_rows,
+      static_cast<const CT*>(codes), s, tile_idx, live, out_v, out_i, n_rows,
       n_items, m, b, bq, n_slots, tile, k, qb, batch_tile);
   return static_cast<int>(cudaGetLastError());
 }
@@ -400,17 +409,19 @@ int pq_scores_launch(const void* codes, int code_type, const void* s,
 
 // batch_tile == 0: tile_idx is 1D (n_slots,); batch_tile > 0: tile_idx is
 // 2D (ceil(bq / batch_tile), n_slots), row j serving queries
-// j * batch_tile .. (j + 1) * batch_tile - 1.
+// j * batch_tile .. (j + 1) * batch_tile - 1.  live: null, or (n_rows,)
+// bytes, 0 = dead row.
 int pq_topk_fused_launch(const void* codes, int code_type, const void* s,
-                         const void* tile_idx, void* out_v, void* out_i,
-                         int n_rows, int n_items, int m, int b, int bq,
-                         int n_slots, int tile, int k, int batch_tile,
+                         const void* tile_idx, const void* live, void* out_v,
+                         void* out_i, int n_rows, int n_items, int m, int b,
+                         int bq, int n_slots, int tile, int k, int batch_tile,
                          void* stream) {
   if (m < 1 || m > kMaxM || tile < 1 || tile > 32 * kLaneCols || k < 1 ||
       k > tile || batch_tile < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   PQ_DISPATCH(launch_topk, codes, static_cast<const float*>(s),
-              static_cast<const int*>(tile_idx), static_cast<float*>(out_v),
+              static_cast<const int*>(tile_idx),
+              static_cast<const uint8_t*>(live), static_cast<float*>(out_v),
               static_cast<int*>(out_i), n_rows, n_items, m, b, bq, n_slots,
               tile, k, batch_tile, static_cast<cudaStream_t>(stream))
 }

@@ -7,7 +7,8 @@ which TPU kernel each replaces and what bounds it on the card):
 * ``pq_topk_fused`` — per item-tile exact top-K over a tile list: the 1D
   identity list (the ``pqtopk_fused`` route), a 1D compacted list with
   ``-1`` sentinel slots (the batch-any ``pqtopk_pruned`` route) or a 2D
-  (batch tile, slot) table (the grouped ``pqtopk_pruned`` route); the
+  (batch tile, slot) table (the grouped ``pqtopk_pruned`` route), each
+  optionally with the ``live`` tombstone mask (the mutable catalogue); the
   cross-slot merge is ``ops._merge_slot_winners``.
 
 The source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
@@ -19,7 +20,8 @@ hosts import this module and never call into it.
 Each wrapper checks device, dtype, shape and contiguity and raises on
 what its kernel does not take; it launches on the current CUDA stream and
 counts its launches in ``<wrapper>.launches`` (the fused kernel's 2D-table
-launches in ``pq_topk_fused_cuda.launches_2d``).
+launches in ``pq_topk_fused_cuda.launches_2d``, and its launches with a
+``live`` mask, in any list form, in ``pq_topk_fused_cuda.launches_live``).
 """
 from __future__ import annotations
 
@@ -106,8 +108,8 @@ def _load():
         lib.pq_smem_bytes.restype = i
         lib.pq_scores_launch.argtypes = [p, i, p, p, i, i, i, i, p]
         lib.pq_scores_launch.restype = i
-        lib.pq_topk_fused_launch.argtypes = [p, i, p, p, p, p, i, i, i, i, i,
-                                             i, i, i, i, p]
+        lib.pq_topk_fused_launch.argtypes = [p, i, p, p, p, p, p, i, i, i, i,
+                                             i, i, i, i, i, p]
         lib.pq_topk_fused_launch.restype = i
         _lib = lib
     return _lib
@@ -163,13 +165,15 @@ pq_scores_cuda.launches = 0
 
 def pq_topk_fused_cuda(codes: torch.Tensor, s: torch.Tensor, k: int,
                        tile_idx: torch.Tensor, *, n_items: int, tile: int,
-                       batch_tile: int = 0):
+                       batch_tile: int = 0, live=None):
     """Per-slot exact top-``k`` of codes tile ``tile_idx[i]`` (``-1`` =
     sentinel slot), global ids, ids >= ``n_items`` masked to -inf.
     ``tile_idx`` is 1D (n_slots,) with ``batch_tile=0``, or 2D (n_bt,
     n_slots) with ``batch_tile >= 1``: row ``j`` serves queries
     ``j*batch_tile .. (j+1)*batch_tile - 1``, and the rows must cover the
-    batch.  -> (vals (B, n_slots, k) f32, ids (B, n_slots, k) i32)."""
+    batch.  ``live`` (N,) bool or uint8, if given, masks dead rows to -inf
+    inside each tile's top-k.  -> (vals (B, n_slots, k) f32, ids (B,
+    n_slots, k) i32)."""
     _check_inputs(codes, s)
     n, m = codes.shape
     bq, _, b = s.shape
@@ -195,6 +199,13 @@ def pq_topk_fused_cuda(codes: torch.Tensor, s: torch.Tensor, k: int,
         raise ValueError(f"k={k} outside [1, tile={tile}]")
     if not 0 <= n_items <= n:
         raise ValueError(f"n_items={n_items} outside [0, N={n}]")
+    if live is not None and (live.dtype not in (torch.bool, torch.uint8)
+                             or tuple(live.shape) != (n,)
+                             or live.device != s.device
+                             or not live.is_contiguous()):
+        raise ValueError(f"live must be a contiguous ({n},) bool or uint8 "
+                         f"tensor on the kernel's device, got "
+                         f"{tuple(live.shape)} {live.dtype} on {live.device}")
     lib = _load()
     if lib.pq_smem_bytes(1, m, b, bq, tile) > MAX_SMEM:
         raise ValueError(f"S and one score tile (m={m}, b={b}, tile={tile}) "
@@ -208,10 +219,13 @@ def pq_topk_fused_cuda(codes: torch.Tensor, s: torch.Tensor, k: int,
     stream = torch.cuda.current_stream(s.device).cuda_stream
     err = lib.pq_topk_fused_launch(
         codes.data_ptr(), CODE_TYPES[codes.dtype], s.data_ptr(),
-        tile_idx.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), n, n_items,
-        m, b, bq, n_slots, tile, k, batch_tile, stream)
+        tile_idx.data_ptr(), None if live is None else live.data_ptr(),
+        out_v.data_ptr(), out_i.data_ptr(), n, n_items, m, b, bq, n_slots,
+        tile, k, batch_tile, stream)
     _raise_on(err, "pq_topk_fused")
-    if tile_idx.dim() == 2:
+    if live is not None:
+        pq_topk_fused_cuda.launches_live += 1
+    elif tile_idx.dim() == 2:
         pq_topk_fused_cuda.launches_2d += 1
     else:
         pq_topk_fused_cuda.launches += 1
@@ -220,3 +234,4 @@ def pq_topk_fused_cuda(codes: torch.Tensor, s: torch.Tensor, k: int,
 
 pq_topk_fused_cuda.launches = 0
 pq_topk_fused_cuda.launches_2d = 0
+pq_topk_fused_cuda.launches_live = 0

@@ -10,7 +10,10 @@ count depend on, and the cross-slot merge of the fused kernel's winners.
 kernel over a compacted tile list (1D, ``-1`` sentinel slots at the tail)
 or a 2D (batch tile, slot) table (the grouped route), and
 :func:`pq_topk_tiles_ladder` launches it on the first slot-budget rung
-that holds a survivor count the caller has read on the host.
+that holds a survivor count the caller has read on the host.  Both take
+the mutable catalogue's ``live`` tombstone mask: dead rows score ``-inf``
+inside the kernel's tile top-k, and :func:`_remap_dead` gives every
+``-inf`` winner the sentinel id ``N``.
 """
 from __future__ import annotations
 
@@ -83,6 +86,14 @@ def _merge_slot_winners(tv: torch.Tensor, ti: torch.Tensor, k: int):
     return fv, torch.gather(ti.reshape(bq, slots * kk), 1, fi.long())
 
 
+def _remap_dead(fv: torch.Tensor, fi: torch.Tensor, n: int):
+    """Tombstone-route winner cleanup: every ``-inf`` winner (a dead item, a
+    sentinel slot, or fewer than k live items) gets the sentinel id ``n``,
+    the number of catalogue rows (the capacity of a mutable catalogue), so
+    callers never see a dead row's id."""
+    return fv, torch.where(fv == NEG_INF, n, fi)
+
+
 def pq_scores(codes: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """PQ scores for all items. codes (N,m), s (B,m,b) -> (B,N) f32."""
     if s.is_cuda:
@@ -92,15 +103,17 @@ def pq_scores(codes: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
                   tile_idx: torch.Tensor, *, n_items: int, tile: int,
-                  batch_tile: int = 0):
+                  batch_tile: int = 0, live=None):
     """The fused kernel's output: per-slot winners (B, n_slots, k).  A 2D
-    ``tile_idx`` gives row ``j`` to queries ``j*batch_tile ..``."""
+    ``tile_idx`` gives row ``j`` to queries ``j*batch_tile ..``; ``live``
+    (N,) masks dead rows inside each tile's top-k."""
     if s.is_cuda:
-        return _k.pq_topk_fused_cuda(codes.contiguous(), s.contiguous(), k,
-                                     tile_idx.contiguous(), n_items=n_items,
-                                     tile=tile, batch_tile=batch_tile)
+        return _k.pq_topk_fused_cuda(
+            codes.contiguous(), s.contiguous(), k, tile_idx.contiguous(),
+            n_items=n_items, tile=tile, batch_tile=batch_tile,
+            live=None if live is None else live.contiguous())
     return _ref.pq_topk_slots(codes, s, k, tile_idx, n_items=n_items,
-                              tile=tile, batch_tile=batch_tile)
+                              tile=tile, batch_tile=batch_tile, live=live)
 
 
 def pq_topk(codes: torch.Tensor, s: torch.Tensor, k: int, *,
@@ -126,13 +139,13 @@ def pq_topk_tiles(codes: torch.Tensor, s: torch.Tensor, k: int,
     behind) or 2D ``(n_batch_tiles, n_slots)`` (each batch tile of
     ``effective_batch_tile(B, batch_tile)`` queries scores its own
     ascending row).  Work is O(slots * tile * m), not O(N * m).
+    ``live`` (N,) bool is the tombstone mask: dead rows score ``-inf``
+    inside the tile top-k and ``-inf`` winners get the id N.
     -> (vals (B,k), ids (B,k)), bit-identical to the exhaustive route for
     the surviving items."""
-    if live is not None:
-        raise NotImplementedError(
-            "the tombstone mask ('live', the mutable catalogue) is a later "
-            "port slice and not ported yet")
     n = codes.shape[0]
+    if live is not None and tuple(live.shape) != (n,):
+        raise ValueError(f"live mask shape {tuple(live.shape)} != ({n},)")
     bq = s.shape[0]
     tile = min(tile, _round_up(n, 128))
     if k > tile:
@@ -140,21 +153,25 @@ def pq_topk_tiles(codes: torch.Tensor, s: torch.Tensor, k: int,
     bt = effective_batch_tile(bq, batch_tile) if tile_idx.dim() == 2 else 0
     idx = tile_idx.to(device=s.device, dtype=torch.int32)
     tv, ti = pq_topk_slots(codes, s, k, idx, n_items=n, tile=tile,
-                           batch_tile=bt)
-    return _merge_slot_winners(tv, ti, k)
+                           batch_tile=bt, live=live)
+    fv, fi = _merge_slot_winners(tv, ti, k)
+    if live is not None:
+        fv, fi = _remap_dead(fv, fi, n)
+    return fv, fi
 
 
 def pq_topk_tiles_ladder(codes: torch.Tensor, s: torch.Tensor, k: int,
                          slot_lists, count: int, *, tile: int,
-                         batch_tile: int = _k.DEFAULT_BATCH_TILE):
+                         batch_tile: int = _k.DEFAULT_BATCH_TILE, live=None):
     """Score the first rung of ``slot_lists`` (``-1``-padded buffers of
     strictly increasing length, the last exhaustive; 2D rows for the
     grouped route) whose budget holds ``count``, the survivor count (the
     largest group's when grouped) that the caller read on the host; the
-    last rung scores whatever the count.  -> (vals (B,k), ids (B,k), rung
+    last rung scores whatever the count.  ``live`` as for
+    :func:`pq_topk_tiles`.  -> (vals (B,k), ids (B,k), rung
     index)."""
     rung = next((i for i, sl in enumerate(slot_lists[:-1])
                  if count <= sl.shape[-1]), len(slot_lists) - 1)
     vals, ids = pq_topk_tiles(codes, s, k, slot_lists[rung], tile=tile,
-                              batch_tile=batch_tile)
+                              batch_tile=batch_tile, live=live)
     return vals, ids, rung

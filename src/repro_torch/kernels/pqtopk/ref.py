@@ -7,6 +7,8 @@ at atol=0.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core import pq as pq_lib
@@ -29,11 +31,15 @@ def pq_topk(codes: torch.Tensor, s: torch.Tensor, k: int):
 
 def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
                   tile_idx: torch.Tensor, *, n_items: int, tile: int,
-                  batch_tile: int = 0):
+                  batch_tile: int = 0, live: Optional[torch.Tensor] = None):
     """What the fused kernel writes: for each slot ``i`` the exact top-``k``
     of codes tile ``tile_idx[i]`` per query, with global ids and ids
     ``>= n_items`` masked to ``-inf`` first; ties to the lowest id.  A
     ``-1`` slot emits ``(-inf, n_items)``.  -> (B, n_slots, k) f32 + i32.
+
+    ``live`` (N,) bool or uint8 is the tombstone mask: a dead row scores
+    ``-inf`` inside its tile's top-k, before the per-slot selection (masking
+    the winners afterwards would let a dead item crowd a live one out).
 
     A 2D ``(n_bt, n_slots)`` table with ``batch_tile`` gives row ``j`` to
     queries ``j*batch_tile .. (j+1)*batch_tile - 1``.  Tiles may run past
@@ -48,7 +54,8 @@ def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
                 f"2D tile_idx has {tile_idx.shape[0]} rows; batch_tile="
                 f"{batch_tile} needs {n_bt} to cover {bq} queries")
         rows = [pq_topk_slots(codes, s[j * batch_tile:(j + 1) * batch_tile],
-                              k, tile_idx[j], n_items=n_items, tile=tile)
+                              k, tile_idx[j], n_items=n_items, tile=tile,
+                              live=live)
                 for j in range(n_bt)]
         return (torch.cat([v for v, _ in rows]),
                 torch.cat([i for _, i in rows]))
@@ -59,9 +66,13 @@ def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
     tid = tile_idx.to(device=dev, dtype=torch.int64)
     gid = (tid.clamp(min=0)[:, None] * tile
            + torch.arange(tile, device=dev)[None, :])          # (slots, tile)
-    rows = pq_lib.take_rows(codes, gid.clamp(max=n - 1).reshape(-1))
+    safe = gid.clamp(max=n - 1)
+    rows = pq_lib.take_rows(codes, safe.reshape(-1))
     sc = pq_scores(rows, s).reshape(bq, n_slots, tile)
-    sc = torch.where((gid < n_items) & (gid < n), sc, NEG_INF)
+    ok = (gid < n_items) & (gid < n)
+    if live is not None:
+        ok &= live.to(dev)[safe] != 0
+    sc = torch.where(ok, sc, NEG_INF)
     v, pos = topk_lib.topk(sc, k)                               # (B, S, k)
     ids = torch.gather(gid.expand(bq, n_slots, tile), 2,
                        pos.long()).to(torch.int32)

@@ -4,9 +4,15 @@
       --reduced --requests 256 --method pqtopk_fused --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --method pqtopk_pruned \
       [--query-grouping] --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --mutable \
+      --churn-steps 8 [--log-dir DIR [--snapshot-every N] [--recover]] \
+      --device cuda
 
 Weights are random, drawn from a fixed seed.  ``--device`` defaults to
-``cuda`` and the launcher raises when no card is present.
+``cuda`` and the launcher raises when no card is present.  ``--mutable``
+serves a catalogue that changes between batches (tombstones, inserts,
+re-coded items) through a hot-swapped head, optionally logged to a
+durable write-ahead log with snapshots.
 """
 from __future__ import annotations
 
@@ -17,16 +23,46 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import get_config, get_reduced
+from repro_torch.core.mutation import MutableHeadState, apply_op
 from repro_torch.core.retrieval_head import TOP_ITEMS_METHODS
 from repro_torch.models import seqrec
+from repro_torch.serving.catalogue_log import CatalogueLog
 from repro_torch.serving.engine import Request, RetrievalEngine
-from repro_torch.training.fault_tolerance import ServeFaultInjector
+from repro_torch.training.fault_tolerance import (ServeFaultInjector,
+                                                  SimulatedFailure)
+
+_ROUTER = ("the replicated router (serving/router.py) is a later port "
+           "slice (ROADMAP queue A 3)")
 
 
 def _ms(v) -> str:
     """Latency field for humans; None (no traffic) is 'n/a', never 0.00."""
     return "n/a" if v is None else f"{v:.2f}ms"
+
+
+def _churn_ops(shadow, rng, n_steps, b):
+    """Draw ``n_steps`` valid mutation ops (an update-heavy mix with some
+    deletes and inserts), applying each to ``shadow`` as drawn: op i+1's
+    validity can depend on op i (no double delete).  The reference
+    launcher's mix and draw order, so one seed gives one op stream."""
+    ops = []
+    for _ in range(n_steps):
+        r = rng.random()
+        row = rng.integers(0, b, shadow.m)
+        live = np.flatnonzero(shadow.live.cpu().numpy())
+        live = live[live > 0]                # row 0 is the padding id
+        if (r < 0.2 and (shadow.free or shadow.n_rows < shadow.cap)) \
+                or live.size <= 1:
+            op = ("insert", row)
+        elif r < 0.5:
+            op = ("delete", int(rng.choice(live)))
+        else:
+            op = ("update", int(rng.choice(live)), row)
+        apply_op(shadow, op)
+        ops.append(op)
+    return ops
 
 
 def main(argv=None):
@@ -73,9 +109,63 @@ def main(argv=None):
                          "stragglers; flagged in stats)")
     ap.add_argument("--slow-ms", type=float, default=50.0)
     ap.add_argument("--max-retries", type=int, default=2)
+    ap.add_argument("--mutable", action="store_true",
+                    help="serve through a MutableHeadState (power-of-two "
+                         "capacity + tombstone mask): the catalogue "
+                         "mutates between batches and the engine hot-swaps "
+                         "the head without new serve variants (forces the "
+                         "pqtopk_pruned route)")
+    ap.add_argument("--churn-steps", type=int, default=0,
+                    help="with --mutable: catalogue mutations (update/"
+                         "delete/insert mix) applied and hot-swapped "
+                         "between every served batch")
+    ap.add_argument("--log-dir", default=None,
+                    help="with --mutable: every mutation commits to a "
+                         "checksummed write-ahead log in this directory "
+                         "(LSN-keyed snapshots beside it) before the swap")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="with --log-dir: a snapshot every N committed "
+                         "mutations (0: only the first one)")
+    ap.add_argument("--recover", action="store_true",
+                    help="with --log-dir: start from the newest valid "
+                         "snapshot + log-tail replay instead of a fresh "
+                         "catalogue (torn log tails are cut)")
+    ap.add_argument("--crash-writer-at", type=int, default=None,
+                    metavar="LSN",
+                    help="chaos, with --log-dir: the append of this LSN "
+                         "writes half a record and fails; serving goes on "
+                         "and a later --recover run replays the log")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="> 1: the replicated router, a later port slice "
+                         "(refused)")
+    ap.add_argument("--crash-replica-at", action="append", default=None,
+                    metavar="RID:LSN",
+                    help="replica chaos of the router (refused)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="router fault plan (refused)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    if args.replicas > 1 or args.chaos or args.crash_replica_at:
+        raise SystemExit(f"--replicas/--chaos/--crash-replica-at: {_ROUTER}")
+    if args.log_dir and not args.mutable:
+        raise SystemExit("--log-dir logs catalogue mutations; it needs "
+                         "--mutable")
+    if args.recover and not args.log_dir:
+        raise SystemExit("--recover replays a durable log; it needs "
+                         "--log-dir")
+    if args.snapshot_every and not args.log_dir:
+        raise SystemExit("--snapshot-every needs --log-dir")
+    if args.crash_writer_at is not None and not args.log_dir:
+        raise SystemExit("--crash-writer-at tears a WAL record; it needs "
+                         "--log-dir")
+    if args.churn_steps and not args.mutable:
+        raise SystemExit("--churn-steps requires --mutable")
+    if args.mutable and args.method not in (None, "pqtopk_pruned"):
+        raise SystemExit("--mutable serves the tombstone-masked pruned "
+                         f"cascade; --method {args.method} has no live-"
+                         "mask route")
+    dev = resolve_device(args.device)
     arch = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     cfg = arch.model
     pq_overrides = {}
@@ -96,12 +186,37 @@ def main(argv=None):
                                     fail_repeats=args.fail_repeats,
                                     slow_at_batches=tuple(args.slow_at or ()),
                                     slow_ms=args.slow_ms)
-    engine = RetrievalEngine.for_seqrec(params, cfg, k=args.k,
-                                        max_batch=args.max_batch,
-                                        method=args.method,
-                                        device=args.device, faults=faults,
-                                        max_retries=args.max_retries,
-                                        calibrate=not args.no_calibrate)
+    mstate, log = None, None
+    if args.mutable:
+        if cfg.pq is None:
+            raise SystemExit(f"arch {args.arch!r} has no PQ head; --mutable "
+                             "needs sub-item codes to mutate")
+        if args.log_dir:
+            log = CatalogueLog(args.log_dir,
+                               snapshot_every=args.snapshot_every)
+            log.fail_at_lsn = args.crash_writer_at
+        if args.recover:
+            mstate, lsn0 = log.recover(device=dev)
+            print(f"recovered catalogue from {args.log_dir} at lsn {lsn0} "
+                  f"(torn bytes dropped: {log.torn_bytes_dropped})")
+        else:
+            mstate = MutableHeadState.build(
+                params["item_emb"]["codes"], cfg.pq.b,
+                backend=cfg.pq.bound_backend,
+                super_factor=cfg.pq.super_factor, device=dev)
+        if log is not None and log.latest_snapshot_lsn() is None:
+            log.snapshot(mstate)          # recovery needs a base snapshot
+        engine = RetrievalEngine.for_seqrec_mutable(
+            params, cfg, mstate, k=args.k, max_batch=args.max_batch,
+            device=dev, calibrate=not args.no_calibrate, faults=faults,
+            max_retries=args.max_retries)
+    else:
+        engine = RetrievalEngine.for_seqrec(params, cfg, k=args.k,
+                                            max_batch=args.max_batch,
+                                            method=args.method, device=dev,
+                                            faults=faults,
+                                            max_retries=args.max_retries,
+                                            calibrate=not args.no_calibrate)
     rng = np.random.default_rng(0)
     # Warm up each padding bucket (first kernel use builds the library).
     for b in (1, args.max_batch):
@@ -112,6 +227,22 @@ def main(argv=None):
     engine.latencies_ms.clear()
     engine.timeouts = 0
 
+    def churn(step_rng):
+        # Mutations only loosen bounds (inserts are exact), so the swapped
+        # head stays exact.  With --log-dir the ops commit to the log (and
+        # snapshots follow --snapshot-every) before the swap.
+        ops = _churn_ops(mstate, step_rng, args.churn_steps, cfg.pq.b)
+        if log is not None:
+            try:
+                log.append_many(ops)
+                log.maybe_snapshot(mstate)
+            except SimulatedFailure as exc:
+                # A torn record on disk: keep serving the in-memory state;
+                # a --recover run replays the log up to the tear.
+                print(f"chaos: {exc}")
+                args.churn_steps = 0
+        engine.swap_head_state(mstate)
+
     t0 = time.monotonic()
     results = []
     for i in range(args.requests):
@@ -120,6 +251,8 @@ def main(argv=None):
         engine.submit(Request(i, seq, k=args.k))
         if len(engine.batcher.queue) >= args.max_batch:
             results += engine.drain()
+            if mstate is not None and args.churn_steps:
+                churn(rng)
     results += engine.drain()
     wall = time.monotonic() - t0
     stats = engine.stats()
@@ -131,6 +264,20 @@ def main(argv=None):
           f"n_compiles={int(stats['n_compiles'])} "
           f"retried={int(stats['retried'])} shed={int(stats['shed'])} "
           f"stragglers={int(stats['stragglers'])}")
+    if mstate is not None:
+        ms = mstate.stats()
+        print(f"catalogue: capacity={int(ms['capacity'])} "
+              f"n_live={int(ms['n_live'])} "
+              f"n_mutations={int(ms['n_mutations'])} "
+              f"stale_tiles={int(ms['stale_tiles'])} "
+              f"n_swaps={int(stats['n_swaps'])}")
+    if log is not None:
+        log.close()
+        ls = log.stats()
+        print(f"log: lsn={int(ls['lsn'])} bytes={int(ls['log_bytes'])} "
+              f"fsyncs={int(ls['n_fsyncs'])} "
+              f"snapshots={int(ls['n_snapshots'])} "
+              f"latest_snapshot_lsn={int(ls['latest_snapshot_lsn'])}")
     if engine.ladder is not None:
         print(f"ladder={engine.ladder} "
               f"rung_hit_fraction={stats['rung_hit_fraction']:.2f} "

@@ -3,19 +3,22 @@
 Backbone -> phi -> PQTopK -> TopK, batched, with deadline shedding,
 bounded retry of injected failures and straggler accounting — the
 single-device routes of the reference's ``serving/engine.py``, the pruned
-cascade's calibrated slot-budget ladder and rung statistics included.
+cascade's calibrated slot-budget ladder and rung statistics included, and
+the mutable catalogue's hot-swappable head (:meth:`RetrievalEngine.
+for_seqrec_mutable`, :meth:`RetrievalEngine.swap_head_state`).
 """
 from __future__ import annotations
 
 import collections
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.pruning import ARRAY_FIELDS, PrunedHeadState
 from repro_torch.training.fault_tolerance import (SimulatedFailure,
                                                   StragglerMonitor)
 
@@ -94,6 +97,32 @@ class InFlightBatch:
     t0: float
 
 
+def _tensor_sig(t: torch.Tensor):
+    return tuple(t.shape), t.dtype, t.device
+
+
+def _head_signature(head: Dict[str, Any]):
+    """What a hot swap must keep: the key set and, per entry, a tensor's
+    shape, dtype and device, or a ``PrunedHeadState``'s static fields and
+    its tensors' (the reference's treedef and leaf shapes and dtypes).
+    -> (structure, {key: static fields}, {(key, field): tensor signature})."""
+    structure, static, tensors = [], {}, {}
+    for key in sorted(head):
+        v = head[key]
+        if isinstance(v, PrunedHeadState):
+            present = tuple(f for f in ARRAY_FIELDS
+                            if getattr(v, f) is not None)
+            structure.append((key, present))
+            static[key] = {f.name: getattr(v, f.name) for f in fields(v)
+                           if f.name not in ARRAY_FIELDS}
+            tensors.update(((key, f), _tensor_sig(getattr(v, f)))
+                           for f in present)
+        else:
+            structure.append((key, None))
+            tensors[(key, None)] = _tensor_sig(v)
+    return tuple(structure), static, tensors
+
+
 class RetrievalEngine:
     """Paper-mode serving: top-K item retrieval for user sequences."""
 
@@ -105,7 +134,8 @@ class RetrievalEngine:
                  max_retries: int = 2, retry_backoff_ms: float = 1.0,
                  straggler_factor: float = 3.0,
                  ladder: Optional[Sequence[int]] = None,
-                 serve_fn_pinned: Optional[Callable] = None):
+                 serve_fn_pinned: Optional[Callable] = None,
+                 head_state: Optional[Dict[str, Any]] = None):
         """``serve_fn(item_seq (B,S) int32, k)`` -> (ids (B,k), scores) or,
         for a pruned route with a ladder, (ids, scores, rung taken); the
         engine tallies the rung into ``rung_counts``.
@@ -119,7 +149,14 @@ class RetrievalEngine:
         ``ladder`` records the slot-budget ladder baked into a pruned
         ``serve_fn``; ``serve_fn_pinned`` is the same route pinned to its
         cheapest rung (bounded cost, possibly inexact), taken by a batch
-        prepared with ``rung_pin=True``."""
+        prepared with ``rung_pin=True``.
+
+        ``head_state`` (a dict of head tensors: codes, pruned metadata,
+        tombstone mask) makes the engine hot-swappable: ``serve_fn`` then
+        takes it as a third argument, each variant reads
+        ``self._head_state`` when it is called, and
+        :meth:`swap_head_state` replaces it between batches without adding
+        a variant."""
         self._serve_fn = serve_fn
         self._serve_fn_pinned = serve_fn_pinned
         self._variants: Dict[Tuple[int, int, Optional[str], bool],
@@ -140,6 +177,10 @@ class RetrievalEngine:
         self.straggler_monitor = StragglerMonitor(factor=straggler_factor)
         self.retried = 0
         self.shed = 0
+        self._head_state = None if head_state is None else dict(head_state)
+        self._head_sig = (None if head_state is None
+                          else _head_signature(self._head_state))
+        self.n_swaps = 0
         self._batch_index = 0
 
     @classmethod
@@ -205,13 +246,75 @@ class RetrievalEngine:
                    retry_backoff_ms=retry_backoff_ms, ladder=ladder,
                    serve_fn_pinned=serve_fn_pinned)
 
+    @classmethod
+    def for_seqrec_mutable(cls, params, cfg, mstate, *, k: int = 10,
+                           max_batch: int = 64, device="cuda",
+                           calibrate: Optional[bool] = None,
+                           survival_stats: Optional[Sequence[int]] = None,
+                           ladder: Optional[Tuple[int, ...]] = None,
+                           faults: Optional[Any] = None,
+                           max_retries: int = 2,
+                           retry_backoff_ms: float = 1.0
+                           ) -> "RetrievalEngine":
+        """Engine over a mutable catalogue: the pruned cascade served
+        against a ``mutation.MutableHeadState`` (or its ``head_arrays()``
+        dict), whose codes, pruned metadata and tombstone mask are merged
+        over ``params``'s item head at every dispatch and hot-swapped
+        between batches with :meth:`swap_head_state`.  The head's tensors
+        must already lie on ``device`` (mutations write them in place; the
+        engine never copies them).  Calibration runs on the initial head
+        with its ``live`` mask."""
+        from repro_torch.core import pruning
+        from repro_torch.interop import to_device
+        from repro_torch.kernels.pqtopk import kernel as pqtopk_kernel
+        from repro_torch.models import seqrec as seqrec_lib
+        dev = resolve_device(device)
+        head0 = (mstate.head_arrays() if hasattr(mstate, "head_arrays")
+                 else dict(mstate))
+        for (key, attr), (_, _, where) in _head_signature(head0)[2].items():
+            if where.type != dev.type or (dev.index is not None
+                                          and where.index != dev.index):
+                raise ValueError(
+                    f"head tensor {key}{'.' + attr if attr else ''} lies "
+                    f"on {where}, not on the engine's {dev}; build the "
+                    f"MutableHeadState on {dev}")
+        params = to_device(params, dev)
+        max_k = min(cfg.n_items, pqtopk_kernel.DEFAULT_TILE)
+
+        def merged(head):
+            return {**params, "item_emb": {**params["item_emb"],
+                                           "codes": head["codes"],
+                                           "pruned": head["pruned"],
+                                           "live": head["live"]}}
+
+        if ladder is None and calibrate is not False:
+            counts = (list(survival_stats) if survival_stats is not None
+                      else cls._observe_survival(merged(head0), cfg, k=k,
+                                                 max_batch=max_batch))
+            state = head0["pruned"]
+            ladder = pruning.calibrate_ladder(counts, state.n_tiles, k,
+                                              state.tile)
+        with_rung = ladder is not None
+
+        def serve_fn(seqs, kk, head):
+            return seqrec_lib.serve_topk(merged(head), seqs, cfg, k=kk,
+                                         method="pqtopk_pruned",
+                                         ladder=ladder, return_rung=with_rung)
+
+        return cls(serve_fn, seq_len=cfg.max_seq_len, k=k, max_k=max_k,
+                   max_batch=max_batch, method="pqtopk_pruned", device=dev,
+                   ladder=ladder, head_state=head0, faults=faults,
+                   max_retries=max_retries,
+                   retry_backoff_ms=retry_backoff_ms)
+
     @staticmethod
     def _observe_survival(params, cfg, *, k: int, max_batch: int,
                           n_batches: int = 3, seed: int = 0) -> List[int]:
         """Build-time calibration: surviving-tile counts of the cascade's
         bounds + theta prefix (no scoring) over ``n_batches`` random
         request batches at 1, 8 and ``max_batch`` queries — the largest
-        per-group count when ``cfg.pq.query_grouping`` is on."""
+        per-group count when ``cfg.pq.query_grouping`` is on; a mutable
+        head's ``live`` mask is honoured."""
         from repro_torch.core import pruning, retrieval_head, scoring
         from repro_torch.models import seqrec as seqrec_lib
         head = params["item_emb"]
@@ -219,6 +322,7 @@ class RetrievalEngine:
         pq = cfg.pq
         seed_kw = retrieval_head._seed_kwargs(pq)
         grouped = pq.query_grouping and pq.n_groups > 1
+        live = head.get("live")
         rng = np.random.default_rng(seed)
         counts = []
         for bsz in dict.fromkeys((1, min(8, max_batch), max_batch)):
@@ -232,10 +336,10 @@ class RetrievalEngine:
                     if grouped:
                         c = pruning.survival_count_grouped(
                             head["codes"], s, k, state, n_groups=pq.n_groups,
-                            **seed_kw)
+                            live=live, **seed_kw)
                     else:
                         c = pruning.survival_count(head["codes"], s, k, state,
-                                                   **seed_kw)
+                                                   live=live, **seed_kw)
                 counts.append(int(c))
         return counts
 
@@ -252,16 +356,60 @@ class RetrievalEngine:
     def _variant(self, bucket: int, kk: int, pinned: bool = False
                  ) -> Callable:
         """Memoised serve callable for one (batch_bucket, k_bucket, method,
-        pinned) key; takes the (bucketed) sequence batch only."""
+        pinned) key; takes the (bucketed) sequence batch only.  A
+        hot-swappable engine's variant reads ``self._head_state`` at each
+        call, so a swap adds no variant."""
         if pinned and self._serve_fn_pinned is None:
             raise ValueError("no pinned (degraded) serve fn on this engine")
         key = (bucket, kk, self.method, pinned)
         fn = self._variants.get(key)
         if fn is None:
             sfn = self._serve_fn_pinned if pinned else self._serve_fn
-            fn = lambda seqs, _k=kk, _f=sfn: _f(seqs, _k)
+            if self._head_state is not None:
+                fn = lambda seqs, _k=kk, _f=sfn: _f(seqs, _k,
+                                                    self._head_state)
+            else:
+                fn = lambda seqs, _k=kk, _f=sfn: _f(seqs, _k)
             self._variants[key] = fn
         return fn
+
+    def swap_head_state(self, head) -> None:
+        """Replace the served head between batches, adding no variant.
+        Accepts the dict ``head_arrays()`` returns or any object with that
+        method (``mutation.MutableHeadState``).  The key set, every
+        ``PrunedHeadState`` static field (tile, n_items, b, backend, shards,
+        super_factor, ...) and every tensor's shape, dtype and device must
+        match the head the engine was built with; a capacity change needs
+        a new engine."""
+        if self._head_state is None:
+            raise ValueError(
+                "engine was not built with a swappable head; use "
+                "for_seqrec_mutable (or pass head_state=) to enable "
+                "hot swapping")
+        if hasattr(head, "head_arrays"):
+            head = head.head_arrays()
+        structure, static, tensors = _head_signature(head)
+        want_structure, want_static, want_tensors = self._head_sig
+        if structure != want_structure:
+            raise ValueError(
+                f"swapped head structure {structure} differs from the "
+                f"engine's structure {want_structure}; hot swap requires "
+                "identical static metadata")
+        for key, fields in static.items():
+            if fields != want_static[key]:
+                raise ValueError(
+                    f"hot swap would change {key}'s static fields from "
+                    f"{want_static[key]} to {fields}; capacity and layout "
+                    "are fixed — rebuild the engine")
+        for where, sig in tensors.items():
+            if sig != want_tensors[where]:
+                raise ValueError(
+                    f"hot swap would change head tensor {where} from "
+                    f"{want_tensors[where]} to {sig}; capacity, dtypes and "
+                    "device are fixed — rebuild the engine to grow the "
+                    "catalogue")
+        self._head_state = dict(head)
+        self.n_swaps += 1
 
     @property
     def has_pinned(self) -> bool:
@@ -402,6 +550,8 @@ class RetrievalEngine:
             "shed": float(self.shed),
             "stragglers": float(len(self.straggler_monitor.flagged)),
         }
+        if self._head_state is not None:
+            out["n_swaps"] = float(self.n_swaps)
         if self.ladder is not None:
             # Share of served batches that stayed on a non-exhaustive rung
             # (the ladder's last rung scores every tile).

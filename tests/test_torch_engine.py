@@ -251,3 +251,122 @@ def test_serve_cli_pruned_prints_ladder(capsys):
     tserve.main(["--reduced", "--requests", "4", "--device", "cpu",
                  "--method", "pqtopk_pruned", "--no-calibrate"])
     assert "ladder=" not in capsys.readouterr().out
+
+
+def _served(eng, hists, base, req_cls):
+    for i, h in enumerate(hists):
+        eng.submit(req_cls(base + i, h, k=5))
+    return {r.request_id: r for r in eng.drain()}
+
+
+def _assert_close_results(got, want):
+    """Scores within 1e-5 (the backbones agree to a tolerance, not to
+    bits) and the same items on rows whose scores leave clear gaps;
+    returns the number of rows whose items were compared."""
+    n_clear = 0
+    for rid, w in want.items():
+        g = got[rid]
+        np.testing.assert_allclose(g.scores, w.scores, rtol=1e-5, atol=1e-5)
+        gaps = -np.diff(w.scores)
+        if np.all((gaps > 1e-4) | (gaps == 0)):
+            np.testing.assert_array_equal(g.items, w.items)
+            n_clear += 1
+    return n_clear
+
+
+def test_mutable_engine_matches_reference_and_hot_swaps():
+    """``for_seqrec_mutable`` on one state in both packages (the reference's
+    ``MutableHeadState`` carried over by ``interop``): the ladder, the
+    live-masked calibration counts and the results agree before and after
+    a churn step and a swap; the swap adds no serve variant; the port's
+    results are the masked exhaustive oracle's, bit for bit."""
+    from repro.core import mutation as jmutation
+    from repro_torch.core import scoring
+    from repro_torch.interop import mutable_state_from_jax
+    from repro_torch.kernels.pqtopk import ops as tops
+    jc, tc, jp, tp = _pruned_models(False)
+    jst = jmutation.MutableHeadState.build(jp["item_emb"]["codes"], jc.pq.b)
+    rng = np.random.default_rng(14)
+    for iid in rng.choice(np.arange(1, 6001), 300, replace=False):
+        jst.delete(int(iid))
+    tst = mutable_state_from_jax(jst)
+    assert tst.cap == 8192 and tst.state.n_tiles == 4
+    counts = [0, 1, 1, 2]
+    ref = jengine.RetrievalEngine.for_seqrec_mutable(
+        jp, jc, jst, k=5, max_batch=8, survival_stats=counts)
+    eng = RetrievalEngine.for_seqrec_mutable(
+        tp, tc, tst, k=5, max_batch=8, survival_stats=counts, device="cpu")
+    assert eng.ladder == ref.ladder and eng.max_k == ref.max_k
+    merged = {**tp, "item_emb": {**tp["item_emb"], **tst.head_arrays()}}
+    jmerged = {**jp, "item_emb": {**jp["item_emb"], **jst.head_arrays()}}
+    assert RetrievalEngine._observe_survival(
+        merged, tc, k=5, max_batch=8, n_batches=1) == \
+        jengine.RetrievalEngine._observe_survival(jmerged, jc, k=5,
+                                                  max_batch=8, n_batches=1)
+    hists = [rng.integers(1, 6001, int(rng.integers(2, 16)))
+             for _ in range(16)]
+    n_clear = _assert_close_results(_served(eng, hists, 0, Request),
+                                    _served(ref, hists, 0, jengine.Request))
+    n_compiles = eng.stats()["n_compiles"]
+    ops = tserve._churn_ops(tst, rng, 40, tc.pq.b)
+    for op in ops:
+        jmutation.apply_op(jst, op)
+    assert torch.equal(tst.live, torch.from_numpy(np.array(jst.live)))
+    eng.swap_head_state(tst)
+    ref.swap_head_state(jst)
+    got = _served(eng, hists, 100, Request)
+    n_clear += _assert_close_results(got, _served(ref, hists, 100,
+                                                  jengine.Request))
+    assert n_clear >= 8
+    st, rst = eng.stats(), ref.stats()
+    assert st["n_compiles"] == n_compiles and st["n_swaps"] == 1.0
+    assert set(st) == set(rst) and rst["n_swaps"] == 1.0
+    dead = np.flatnonzero(~tst.live.numpy())
+    assert not any(np.isin(r.items, dead).any() for r in got.values())
+    # Bit for bit: the masked exhaustive oracle on the served batch.
+    _, prep = eng.prepare([Request(i, h, k=5) for i, h in
+                           enumerate(hists[:8])])
+    res = eng.complete(eng.launch(prep))
+    with torch.inference_mode():
+        phi = seqrec.sequence_embedding(merged, prep.seqs, tc)
+        s = scoring.subid_scores(merged["item_emb"]["sub_emb"], phi)
+        sc = torch.where(tst.live[None, :], tops.pq_scores(tst.codes, s),
+                         float("-inf"))
+        ov, oi = tops._merge_slot_winners(sc[:, None, :], torch.arange(
+            tst.cap, dtype=torch.int32).expand(8, 1, -1), prep.kk)
+    for i, r in enumerate(res):
+        np.testing.assert_array_equal(r.items, oi[i, :5].numpy())
+        np.testing.assert_array_equal(r.scores, ov[i, :5].numpy())
+
+
+def test_mutable_engine_swap_validation():
+    from dataclasses import replace as dc_replace
+
+    from repro_torch.core.mutation import MutableHeadState
+    _, tc, _, tp = _pruned_models(False)
+    codes = tp["item_emb"]["codes"]
+    mstate = MutableHeadState.build(codes, tc.pq.b)
+    eng = RetrievalEngine.for_seqrec_mutable(tp, tc, mstate, k=5,
+                                             max_batch=8, calibrate=False,
+                                             device="cpu")
+    assert eng.ladder is None and eng.stats()["n_swaps"] == 0.0
+    with pytest.raises(ValueError, match="structure"):
+        eng.swap_head_state({"codes": mstate.codes, "live": mstate.live})
+    bigger = MutableHeadState.build(codes, tc.pq.b, capacity=4 * mstate.cap)
+    with pytest.raises(ValueError, match="capacity"):
+        eng.swap_head_state(bigger)                  # a new engine's job
+    with pytest.raises(ValueError, match="static fields"):
+        eng.swap_head_state({**mstate.head_arrays(), "pruned": dc_replace(
+            mstate.state, backend="range")})
+    with pytest.raises(ValueError, match="dtypes"):
+        eng.swap_head_state({**mstate.head_arrays(),
+                             "codes": mstate.codes.long()})
+    assert eng.stats()["n_swaps"] == 0.0
+    eng.swap_head_state(mstate.clone())
+    assert eng.stats()["n_swaps"] == 1.0
+    plain = RetrievalEngine.for_seqrec(tp, tc, k=5, max_batch=8,
+                                       method="pqtopk_pruned",
+                                       calibrate=False, device="cpu")
+    with pytest.raises(ValueError, match="swappable"):
+        plain.swap_head_state(mstate)
+    assert "n_swaps" not in plain.stats()

@@ -109,3 +109,80 @@ def test_pruned_cascade_matches_exhaustive_route(cuda_device):
                 return_stats=True)
             assert torch.equal(v, ev) and torch.equal(i, ei)
             assert st["n_groups"] == (3 if grouped else 1)
+
+
+@pytest.mark.parametrize("form,tile", [("identity", 2048), ("sentinel", 1000),
+                                       ("2d", 2048), ("2d", 1000)])
+def test_fused_kernel_live_matches_plain_version(cuda_device, form, tile):
+    """Form (d), the tombstone mask, in each list form: ~10% random
+    tombstones, one fully dead tile and dead capacity padding; counted in
+    ``launches_live`` only."""
+    n_real, cap, m, b, bt = 9_001, 16_384, 8, 512, 8
+    codes, s = _inputs(cap, m, b, 2 * bt + 3, "uint16", seed=11)
+    rng = np.random.default_rng(12)
+    live = torch.from_numpy(rng.random(cap) > 0.1)
+    live[n_real:] = False                           # capacity padding
+    live[tile:2 * tile] = False                     # one dead tile
+    live[3] = False                                 # a dead top scorer
+    nt = tops.n_tiles(cap, tile)
+    if form == "identity":
+        idx, batch_tile = torch.arange(nt, dtype=torch.int32), 0
+    elif form == "sentinel":
+        idx = torch.tensor([0, 1, 4, nt - 1, -1, -1], dtype=torch.int32)
+        batch_tile = 0
+    else:
+        table = np.full((3, 5), -1, np.int32)
+        table[0] = [0, 1, 2, 4, nt - 1]
+        table[1, :2] = [1, 3]
+        idx, batch_tile = torch.from_numpy(table), bt
+    gc, gs, gi, gl = (t.to(cuda_device) for t in (codes, s, idx, live))
+    before = (tkernel.pq_topk_fused_cuda.launches,
+              tkernel.pq_topk_fused_cuda.launches_2d,
+              tkernel.pq_topk_fused_cuda.launches_live)
+    for k in (1, 16, 100):
+        got = tops.pq_topk_slots(gc, gs, k, gi, n_items=cap, tile=tile,
+                                 batch_tile=batch_tile, live=gl)
+        want = tref.pq_topk_slots(codes, s, k, idx, n_items=cap, tile=tile,
+                                  batch_tile=batch_tile, live=live)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+        ids = want[1][torch.isfinite(want[0])]
+        assert live[ids.long()].all()
+    assert (tkernel.pq_topk_fused_cuda.launches,
+            tkernel.pq_topk_fused_cuda.launches_2d,
+            tkernel.pq_topk_fused_cuda.launches_live) == (
+                before[0], before[1], before[2] + 3)
+    with pytest.raises(ValueError, match="live"):
+        tkernel.pq_topk_fused_cuda(gc, gs, 4, gi, n_items=cap, tile=tile,
+                                   batch_tile=batch_tile, live=gl[:-1])
+
+
+def test_mutable_cascade_matches_masked_oracle(cuda_device):
+    """The live-masked cascade on the card after churn, batch-any and
+    grouped, against the exhaustive masked route, bit for bit."""
+    from repro_torch.core import pruning
+    from repro_torch.core.mutation import MutableHeadState
+    n, m, b, bq = 30_000, 8, 256, 24
+    rng = np.random.default_rng(13)
+    centers = (np.arange(n) / n * b).astype(np.int64)
+    codes = torch.from_numpy(np.clip(
+        centers[:, None] + rng.integers(-1, 2, (n, m)), 0, b - 1
+    ).astype(np.uint16)).to(cuda_device)
+    for backend in ("bitmask", "range"):
+        mstate = MutableHeadState.build(codes, b, backend=backend)
+        for iid in rng.choice(np.arange(1, n), 3000, replace=False):
+            mstate.delete(int(iid))
+        for _ in range(50):
+            mstate.insert(rng.integers(0, b, m))
+        s = torch.from_numpy(rng.standard_normal((bq, m, b)).astype(
+            np.float32)).to(cuda_device)
+        sc = torch.where(mstate.live[None, :],
+                         tref.pq_scores(mstate.codes, s), float("-inf"))
+        ov, oi = tops._merge_slot_winners(sc[:, None, :], torch.arange(
+            mstate.cap, dtype=torch.int32, device=cuda_device).expand(
+                bq, 1, -1), 10)
+        for grouped in (False, True):
+            v, i = pruning.cascade_topk_ingraph(
+                mstate.codes, s, 10, mstate.state, live=mstate.live,
+                query_grouping=grouped, ladder=(4, 8))
+            assert torch.equal(v, ov) and torch.equal(i, oi)

@@ -202,3 +202,87 @@ def test_pq_topk_tiles_and_ladder_match_reference(grouped):
         assert tr == int(jr)
         np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
         np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+def _live_mask(n, tile, seed):
+    """~10% random tombstones, tile 1 fully dead, and the three tied rows
+    (3, N/2, N-1) dead: the masked winners must come from inside the
+    tiles, past the dead top scorers."""
+    live = np.random.default_rng(seed).random(n) > 0.1
+    live[tile:2 * tile] = False
+    live[[3, n // 2, n - 1]] = False
+    return live
+
+
+def _jax_live(live, n_padded, tile):
+    """The reference kernel's (N/tile, tile) int8 layout: padding rows
+    dead."""
+    lv = np.zeros(n_padded, np.int8)
+    lv[:live.shape[0]] = live
+    return jnp.asarray(lv.reshape(-1, tile))
+
+
+@pytest.mark.parametrize("form", ["identity", "sentinel", "2d"])
+def test_pq_topk_slots_live_matches_fused_call(form):
+    """Form (d), the tombstone mask, at slot level in each list form: dead
+    rows score -inf inside the tile top-k, before the per-slot
+    selection."""
+    n, m, b, k, tile, bt = 1000, 4, 64, 5, 128, 8
+    codes, s = _plant_ties(*_inputs(n, m, b, 2 * bt, "uint16", seed=9))
+    live = _live_mask(n, tile, seed=10)
+    nt = tops.n_tiles(n, tile)
+    if form == "identity":
+        tile_idx, batch_tile = np.arange(nt, dtype=np.int32), 0
+    elif form == "sentinel":
+        tile_idx = np.array([0, 1, 3, nt - 1, -1, -1], np.int32)
+        batch_tile = 0
+    else:
+        tile_idx, batch_tile = _table_2d(nt, 2, 5, seed=11), bt
+        tile_idx[0, :2] = [0, 1]
+    jc = jops._pad_codes(jnp.asarray(codes), tile, sentinel=True)
+    rv, ri = (np.asarray(a) for a in jkernel.pq_topk_fused_call(
+        jc, jnp.asarray(s), k, tile_idx=jnp.asarray(tile_idx), n_items=n,
+        tile=tile, batch_tile=bt, live=_jax_live(live, jc.shape[0], tile),
+        interpret=True))
+    v, i = tops.pq_topk_slots(_t(codes), _t(s), k, _t(tile_idx), n_items=n,
+                              tile=tile, batch_tile=batch_tile,
+                              live=_t(live))
+    np.testing.assert_array_equal(v.numpy(), rv)
+    np.testing.assert_array_equal(i.numpy(), ri)
+    got = i.numpy()[np.isfinite(v.numpy())]
+    assert got.size and live[got].all()
+    assert not np.array_equal(v.numpy(), tops.pq_topk_slots(
+        _t(codes), _t(s), k, _t(tile_idx), n_items=n, tile=tile,
+        batch_tile=batch_tile)[0].numpy())
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_pq_topk_tiles_live_matches_reference(grouped):
+    """The scoring stage with the mask, merged across slots: ``-inf``
+    winners (a tile list holding fewer than k live items) get the id N on
+    both sides."""
+    n, m, b, k, bq, tile = 3000, 4, 64, 7, 16, 256
+    codes, s = _plant_ties(*_inputs(n, m, b, bq, "int32", seed=12))
+    live = _live_mask(n, tile, seed=13)
+    live[:tile] = False
+    live[5] = True                     # tile 0 holds one live item
+    nt = tops.n_tiles(n, tile)
+    bt = tops.group_batch_tile(bq, 2)
+    if grouped:
+        idx = np.full((bq // bt, nt), -1, np.int32)
+        idx[0, :1] = [0]                # one live item for this row
+        idx[1, :3] = [0, 2, nt - 1]
+    else:
+        idx = np.full(nt, -1, np.int32)
+        idx[:2] = [0, 1]                # one live item in all
+    rv, ri = (np.asarray(a) for a in jops.pq_topk_tiles(
+        jnp.asarray(codes), jnp.asarray(s), k, jnp.asarray(idx), tile=tile,
+        batch_tile=bt, live=jnp.asarray(live)))
+    v, i = tops.pq_topk_tiles(_t(codes), _t(s), k, _t(idx), tile=tile,
+                              batch_tile=bt, live=_t(live))
+    np.testing.assert_array_equal(v.numpy(), rv)
+    np.testing.assert_array_equal(i.numpy(), ri)
+    assert (i.numpy()[:bt, 1:] == n).all() and (i.numpy()[:bt, 0] == 5).all()
+    with pytest.raises(ValueError, match="live mask shape"):
+        tops.pq_topk_tiles(_t(codes), _t(s), k, _t(idx), tile=tile,
+                           batch_tile=bt, live=_t(live[:-1]))

@@ -275,12 +275,14 @@ def test_later_slices_raise():
         tp.build_pruned_state(tc, B_SUB, TILE, super_factor=4)
     with pytest.raises(NotImplementedError, match="shards"):
         tp.build_pruned_state(tc, B_SUB, TILE, shards=2)
-    with pytest.raises(NotImplementedError, match="live"):
+    # The tombstone mask is ported (test_torch_mutation.py); a mask of
+    # the wrong length is refused.
+    with pytest.raises(ValueError, match="live"):
         tp.cascade_topk_ingraph(tc, ts, 10, tst,
-                                live=torch.ones(N, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="live"):
+                                live=torch.ones(N - 1, dtype=torch.bool))
+    with pytest.raises(ValueError, match="live"):
         tops.pq_topk_tiles(tc, ts, 10, torch.arange(3, dtype=torch.int32),
-                           tile=TILE, live=torch.ones(N, dtype=torch.bool))
+                           tile=TILE, live=torch.ones(N + 1, dtype=torch.bool))
     from dataclasses import replace
     with pytest.raises(ValueError, match="shards=1"):
         tp.cascade_topk_ingraph(tc, ts, 10, replace(tst, shards=2))
