@@ -17,11 +17,20 @@ launches.  Then the mutable catalogue: the fused kernel's tombstone-masked
 form (``live``) against its plain version, and a mutable engine at full
 width (capacity 2,097,152 rows) serving 100 batches with 8 catalogue
 mutations and a hot swap between batches, logged to a durable write-ahead
-log that is recovered and checked bit for bit at the end.  Prints the
-card's name and power limit, kernel and per-method timings, a JSON line of
-kernel records, and last ``{"ok": true, "device": ...}``.  Any failed phase
-raises and exits non-zero; without a CUDA device it exits non-zero before
-doing anything.
+log that is recovered and checked bit for bit at the end.  Then the
+recsys slice: the embedding-bag kernel against its plain version (phase
+1); the embedding substrate's ``lookup_bag(use_kernel=True)`` on BST's
+full-width item table (4,000,000 x 32; 512 and 262,144 bags, cross-checked
+against BST's ``user_query``) and DCN-v2's 10,131,227-row table (phase 2);
+and the four recsys models (DCN-v2, BST, DIEN, FM) at full width, one at a
+time: ``serve_p99`` logits against the same function on the CPU,
+``retrieval_cand`` through the fused kernel bit-identical to ``pqtopk``,
+DCN-v2's ``serve_bulk``, and launch counts that show the model paths run
+no embedding bag (phase 3).  Both kernel sources are built at once, one
+nvcc each.  Prints the card's name and power limit, kernel and per-method
+timings, a JSON line of kernel records, and last ``{"ok": true, "device":
+...}``.  Any failed phase raises and exits non-zero; without a CUDA
+device it exits non-zero before doing anything.
 """
 from __future__ import annotations
 
@@ -767,6 +776,318 @@ def mutable_path(params, cfg, dev, n_sms, frozen_stats):
             "launches": launches["pq_topk_fused_live"]}
 
 
+EB_SRC = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
+RECSYS_ARCHS = ("bst", "dcn-v2", "dien", "fm")
+
+
+def build_all():
+    """Build every kernel library at once: one nvcc per source, started
+    together; print each kernel instance's ptxas report as the compiler
+    wrote it.  Returns {package: library path}."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.kernels.pqtopk import kernel as pq_kernel
+    mods = {"pqtopk": pq_kernel, "embedding_bag": eb_kernel}
+    with ThreadPoolExecutor(len(mods)) as pool:
+        futs = {name: pool.submit(mod.build) for name, mod in mods.items()}
+        libs = {name: f.result() for name, f in futs.items()}
+    for name, lib in libs.items():
+        entry, frame = "", ""
+        for line in nvcc.report_path(lib).read_text().splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1]
+            elif "stack frame" in line:
+                frame = line.strip()
+            elif "registers" in line:
+                print(f"ptxas {entry}: {line.split(':', 1)[1].strip()}; "
+                      f"{frame}")
+    return libs
+
+
+def bag_inputs(v, d, n_bags, bag, weighted, seed, dev):
+    """A table, indices in [-1, v) (bags 0 and n_bags-1 all padding) and
+    weights, from numpy with ``seed``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    idx = rng.integers(-1, v, (n_bags, bag)).astype(np.int32)
+    idx[[0, n_bags - 1]] = -1
+    w = rng.uniform(0, 1, (n_bags, bag)).astype(np.float32)
+    return (torch.from_numpy(table).to(dev), torch.from_numpy(idx).to(dev),
+            torch.from_numpy(w).to(dev) if weighted else None)
+
+
+def check_embedding_bag(dev):
+    """Phase 1: the kernel through its wrapper against the plain version,
+    bit for bit, over ``ref.GRID`` (each case with all-padding bags); each
+    call must launch the kernel once.  Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.embedding_bag import kernel, ops, ref
+    err = 0.0
+    for i, (v, d, n_bags, bag, mode, weighted) in enumerate(ref.GRID):
+        table, idx, w = bag_inputs(v, d, n_bags, bag, weighted, i, dev)
+        before = kernel.embedding_bag_cuda.launches
+        got = ops.embedding_bag(table, idx, w, mode=mode)
+        torch.cuda.synchronize()
+        if kernel.embedding_bag_cuda.launches != before + 1:
+            raise AssertionError(f"embedding_bag {v}x{d}: launched "
+                                 f"{kernel.embedding_bag_cuda.launches - before}"
+                                 " times, expected 1")
+        want = ref.embedding_bag(table, idx, w, mode)
+        err = max(err, (got - want).abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"embedding_bag V={v} d={d} n_bags={n_bags} bag={bag} {mode} "
+                f"weighted={weighted}: {int((got != want).sum())} values "
+                "differ from the plain version")
+        if not torch.equal(got[0], torch.zeros_like(got[0])):
+            raise AssertionError("embedding_bag: an all-padding bag is not 0")
+    print(f"kernel check embedding_bag: {len(ref.GRID)} shapes (the "
+          "reference's grid, d in {10, 18}, n_bags not a multiple of 8, "
+          "all-padding bags) bit-exact")
+    return err
+
+
+def bag_bytes(idx, d, weighted):
+    """The least traffic of one embedding-bag call on this data: each
+    distinct row it reads (row 0 too where a slot is padding), each index,
+    each weight where the bag is weighted (an unweighted bag's mask is
+    derived from its indices), and the (n_bags, d) output, in f32.
+    Returns (bytes, distinct rows read)."""
+    import torch
+    live = idx >= 0
+    rows = torch.unique(idx[live])
+    n_rows = rows.numel() + int(bool((~live).any())
+                                and not bool((rows == 0).any()))
+    n_slots = idx.numel()
+    return (n_rows * 4 * d + n_slots * 4 + (n_slots * 4 if weighted else 0)
+            + idx.shape[0] * 4 * d), n_rows
+
+
+def bag_path(name, table, idx, w, mode, n_sms):
+    """Phase 2, one input: ``lookup_bag(use_kernel=True)`` with the launch
+    count set to 0 just before and read just after (one launch), held
+    bit for bit against the plain version; then the kernel, its plain
+    version and ``F.embedding_bag`` timed on the folded weights, and the
+    byte bound of :func:`bag_bytes`.  Returns (output, record)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import kernel, ref
+    from repro_torch.models import embedding
+    kernel.embedding_bag_cuda.launches = 0
+    out = embedding.lookup_bag(table, idx, w, mode=mode, use_kernel=True)
+    torch.cuda.synchronize()
+    launches = kernel.embedding_bag_cuda.launches
+    if launches != 1:
+        raise AssertionError(f"{name}: lookup_bag launched embedding_bag "
+                             f"{launches} times, expected 1")
+    want = ref.embedding_bag(table, idx, w, mode)
+    err = (out - want).abs().max().item()
+    if not torch.equal(out, want):
+        raise AssertionError(f"{name}: {int((out != want).sum())} values "
+                             "differ from the plain version")
+    idx32 = idx.to(torch.int32).contiguous()
+    wf = ref.fold_weights(idx32, w).contiguous()
+    idx0 = idx32.clamp(min=0)
+    n_bags, bag = idx.shape
+    d = table.shape[1]
+    if mode == "mean":
+        lib_fn = lambda: F.embedding_bag(
+            idx0, table, per_sample_weights=wf, mode="sum") \
+            / wf.sum(1).clamp(min=1.0)[:, None]
+    else:
+        lib_fn = lambda: F.embedding_bag(idx0, table, per_sample_weights=wf,
+                                         mode="sum")
+    lib_out = lib_fn()
+    torch.testing.assert_close(lib_out, out, rtol=1e-5, atol=1e-6)
+    rec = {"ms": time_ms(lambda: kernel.embedding_bag_cuda(
+               table, idx32, wf, mode=mode), 20),
+           "plain_ms": time_ms(lambda: ref.bag_reduce(table, idx32, wf,
+                                                      mode), 5),
+           "library_ms": time_ms(lib_fn, 20)}
+    nbytes, n_rows = bag_bytes(idx32, d, weighted=w is not None)
+    bnd, by, terms = bound_ms(nbytes, 2 * n_bags * bag * d, 0, n_sms)
+    rec.update(bound_ms=bnd, bound_by=by, launches=launches, max_abs_err=err)
+    print(f"bag {name}: table {tuple(table.shape)} n_bags={n_bags} bag={bag} "
+          f"{mode}: kernel {rec['ms']:.4f}ms plain {rec['plain_ms']:.4f}ms "
+          f"F.embedding_bag {rec['library_ms']:.4f}ms bound {bnd:.4f}ms "
+          f"({by}: {nbytes / 1e6:.1f} MB, {n_rows} distinct rows of "
+          f"{n_bags * bag} slots; {terms}); bit-exact, launches "
+          f"{launches}")
+    return out, rec
+
+
+def recsys_models(dev, n_sms):
+    """Phases 2 and 3: each recsys config at full width, one at a time
+    (freed before the next).  Init on the CPU generator (seed 0), then to
+    the card; BST's item table and DCN-v2's largest table carry the
+    substrate's bag path (phase 2); every config serves ``serve_p99``
+    against the same function on the CPU, ``retrieval_cand`` through the
+    fused kernel (bit-identical to ``pqtopk``), and DCN-v2 also
+    ``serve_bulk`` and the other flat methods.  The model paths launch
+    ``embedding_bag`` 0 times and the fused kernel once per
+    ``retrieve_topk``.  Returns the bag records by name."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.recsys_data import ctr_batch
+    from repro_torch.core import scoring
+    from repro_torch.interop import to_device
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.kernels.pqtopk import kernel as pq_kernel, ops as pq_ops
+    from repro_torch.models import recsys
+    bags = {}
+    for arch in RECSYS_ARCHS:
+        spec = get_config(arch)
+        cfg = spec.model
+        t0 = time.monotonic()
+        cpu_params = recsys.init_recsys(torch.Generator().manual_seed(0), cfg,
+                                        device="cpu")
+        t_draw = time.monotonic() - t0
+        params = to_device(cpu_params, dev)
+        torch.cuda.synchronize()
+        n_rows = cfg.total_rows()
+        print(f"init {arch}: {len(cfg.table_rows)} tables, {n_rows} rows x "
+              f"{cfg.embed_dim} f32 ({n_rows * cfg.embed_dim * 4 / 1e9:.3f} "
+              f"GB), catalogue N={cfg.n_items} m={cfg.pq.m} b={cfg.pq.b} "
+              f"{params['item_emb']['codes'].dtype}: drawn on the CPU in "
+              f"{t_draw:.1f}s, on the card in {time.monotonic() - t0:.1f}s")
+        with torch.inference_mode():
+            if arch == "bst":
+                # (a) The item halves of the histories, mean-pooled by
+                # lookup_bag, against user_query's lookup_fields pooling.
+                table = params["emb"]["tables"][0]
+                for shape in ("serve_p99", "serve_bulk"):
+                    n = spec.shape(shape).dims["global_batch"]
+                    batch = recsys.batch_tensors(ctr_batch(cfg, n, 0), dev)
+                    hist = batch["seq"][:, :, 0]
+                    out, rec = bag_path(f"bst {shape}", table, hist, None,
+                                        "mean", n_sms)
+                    torch.testing.assert_close(
+                        out, recsys.user_query(params, batch, cfg),
+                        rtol=1e-5, atol=1e-6)
+                    print(f"bag bst {shape}: matches user_query's pooled "
+                          "history (rtol=1e-5, atol=1e-6)")
+                    bags[f"bst {shape}"] = rec
+                    del batch, hist, out
+            if arch == "dcn-v2":
+                # (b) The largest Criteo table, weighted sum, 25% padding.
+                big = int(np.argmax(cfg.table_rows))
+                table = params["emb"]["tables"][big]
+                rng = np.random.default_rng(7)
+                idx = rng.integers(0, table.shape[0], (4096, 8))
+                idx[rng.random(idx.shape) < 0.25] = -1
+                w = rng.uniform(0, 1, idx.shape).astype(np.float32)
+                _, bags["dcn-v2 criteo"] = bag_path(
+                    f"dcn-v2 table {big}",
+                    table, torch.from_numpy(idx.astype(np.int32)).to(dev),
+                    torch.from_numpy(w).to(dev), "sum", n_sms)
+
+            # ---- phase 3: the model paths, counts at 0 ----------------
+            p99 = ctr_batch(cfg, spec.shape("serve_p99").dims["global_batch"],
+                            0)
+            b_p99 = recsys.batch_tensors(p99, dev)
+            b_one = recsys.batch_tensors(ctr_batch(cfg, 1, 1), dev)
+            bulk = (recsys.batch_tensors(ctr_batch(
+                cfg, spec.shape("serve_bulk").dims["global_batch"], 2), dev)
+                if arch == "dcn-v2" else None)
+            eb_kernel.embedding_bag_cuda.launches = 0
+            pq_kernel.pq_topk_fused_cuda.launches = 0
+            logits = recsys.ctr_logits(params, b_p99, cfg)
+            ids, vals = recsys.retrieve_topk(params, b_one, cfg, k=K,
+                                             method="pqtopk_fused")
+            bulk_logits = (recsys.ctr_logits(params, bulk, cfg)
+                           if bulk is not None else None)
+            torch.cuda.synchronize()
+            got = {"embedding_bag": eb_kernel.embedding_bag_cuda.launches,
+                   "pq_topk_fused": pq_kernel.pq_topk_fused_cuda.launches}
+            print(f"path {arch} (ctr_logits serve_p99"
+                  f"{', serve_bulk' if bulk is not None else ''}, "
+                  f"retrieve_topk pqtopk_fused): launches {got}; the model "
+                  "paths do not run embedding_bag, as in the reference")
+            if got != {"embedding_bag": 0, "pq_topk_fused": 1}:
+                raise AssertionError(f"{arch}: launched {got}, expected "
+                                     "embedding_bag 0 and pq_topk_fused 1")
+
+            want = recsys.ctr_logits(cpu_params, recsys.batch_tensors(
+                p99, "cpu"), cfg)
+            if logits.shape != (len(want),) or not bool(
+                    torch.isfinite(logits).all()):
+                raise AssertionError(f"{arch}: bad logits {logits.shape}")
+            torch.testing.assert_close(logits.cpu(), want, rtol=1e-4,
+                                       atol=1e-4)
+            err = (logits.cpu() - want).abs().max().item()
+            p99_ms = time_ms(lambda: recsys.ctr_logits(params, b_p99, cfg),
+                             10)
+            print(f"serve_p99 {arch}: B={len(want)} ctr_logits "
+                  f"{p99_ms:.4f}ms; matches the CPU run (max abs diff "
+                  f"{err:.3e}, rtol=atol=1e-4)")
+            if bulk_logits is not None:
+                n_bulk = bulk_logits.shape[0]
+                if not bool(torch.isfinite(bulk_logits).all()):
+                    raise AssertionError(f"{arch}: non-finite bulk logits")
+                head = {k: v[:512].cpu() for k, v in bulk.items()}
+                torch.testing.assert_close(
+                    bulk_logits[:512].cpu(),
+                    recsys.ctr_logits(cpu_params, head, cfg),
+                    rtol=1e-4, atol=1e-4)
+                bulk_ms = time_ms(lambda: recsys.ctr_logits(params, bulk,
+                                                            cfg), 5)
+                print(f"serve_bulk {arch}: B={n_bulk} ctr_logits "
+                      f"{bulk_ms:.4f}ms ({n_bulk / bulk_ms * 1e3:.0f} "
+                      "rows/s); first 512 rows match the CPU run")
+            ev, ei = recsys.retrieve_topk(params, b_one, cfg, k=K,
+                                          method="pqtopk")[::-1]
+            if not (torch.equal(ids, ei) and torch.equal(vals, ev)):
+                raise AssertionError(f"{arch}: pqtopk_fused differs from "
+                                     "pqtopk")
+            if ids.shape != (1, K) or ids.min() < 0 \
+                    or ids.max() >= cfg.n_items:
+                raise AssertionError(f"{arch}: bad ids {ids}")
+            # The fused kernel alone at this shape, and the query side.
+            head = params["item_emb"]
+            s_q = scoring.subid_scores(head["sub_emb"], recsys.user_query(
+                params, b_one, cfg)).contiguous()
+            n = head["codes"].shape[0]
+            tile = min(2048, -(-n // 128) * 128)
+            idx = torch.arange(pq_ops.n_tiles(n, tile), dtype=torch.int32,
+                               device=dev)
+            split = {"user_query": time_ms(lambda: recsys.user_query(
+                         params, b_one, cfg), 10),
+                     "fused kernel": time_ms(
+                         lambda: pq_kernel.pq_topk_fused_cuda(
+                             head["codes"], s_q, K, idx, n_items=n,
+                             tile=tile), 10)}
+            methods = ("pqtopk_fused", "pqtopk") + (
+                ("dense", "recjpq", "pqtopk_onehot")
+                if arch == "dcn-v2" else ())
+            times = {}
+            for method in methods:
+                fn = lambda: recsys.retrieve_topk(params, b_one, cfg, k=K,
+                                                  method=method)
+                if method in ("dense", "recjpq", "pqtopk_onehot"):
+                    # Sequential and matmul sums round differently from
+                    # tree_sum: values within 1e-5 of the exact route.
+                    torch.testing.assert_close(fn()[1], ev, rtol=1e-5,
+                                               atol=1e-5)
+                times[method] = time_ms(fn, 10)
+            print(f"retrieval_cand {arch}: N={cfg.n_items} B=1 k={K} "
+                  + ", ".join(f"{m} {t:.4f}ms" for m, t in times.items())
+                  + " (pqtopk_fused's parts: " + ", ".join(f"{m} {t:.4f}ms"
+                                            for m, t in split.items())
+                  + "); pqtopk_fused bit-identical to pqtopk"
+                  + ("; dense, recjpq, pqtopk_onehot within 1e-5"
+                     if arch == "dcn-v2" else ""))
+            del b_p99, b_one, bulk, logits, bulk_logits
+        del params, cpu_params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return bags
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -789,18 +1110,12 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.monotonic()
-    lib = kernel.build()
+    libs = build_all()
     print(f"build: {time.monotonic() - t0:.1f}s -> "
-          f"{os.path.relpath(lib, ROOT)}")
-    entry = ""
-    for line in (kernel.BUILD_DIR / "ptxas.log").read_text().splitlines():
-        if "Compiling entry" in line:
-            entry = line
-        elif "registers" in line and "ItLi8E" in entry:   # uint16, m=8
-            name = "pq_scores" if "pq_scores" in entry else "pq_topk_fused"
-            print(f"ptxas {name}<uint16, m=8>: {line.split(':', 1)[1].strip()}")
+          + ", ".join(os.path.relpath(p, ROOT) for p in libs.values()))
 
     max_err = check_kernels(dev)
+    max_err["embedding_bag"] = check_embedding_bag(dev)
     max_err["pq_topk_fused_live"] = check_live_kernel(dev)
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     forms = skewed_cascade(dev, n_sms)
@@ -920,6 +1235,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/pqtopk/kernel.py:148",
         "max_abs_err": max_err["pq_topk_fused_live"], **live_rec,
         "library_ms": None})
+    bags = recsys_models(dev, n_sms)
+    bulk = bags["bst serve_bulk"]
+    recs.append({
+        "name": "embedding_bag", "route": "cuda", "source": EB_SRC,
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:35",
+        "launches": sum(b["launches"] for b in bags.values()),
+        "max_abs_err": max([max_err["embedding_bag"]]
+                           + [b["max_abs_err"] for b in bags.values()]),
+        **{k: bulk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}})
     for r in recs:
         print(f"kernel {r['name']}: {r['ms']:.4f}ms plain {r['plain_ms']:.4f}"
               f"ms bound {r['bound_ms']:.4f}ms ({r['bound_by']}) library "

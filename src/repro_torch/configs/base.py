@@ -1,16 +1,16 @@
-"""Config dataclasses + the seqrec arch registry.
+"""Config dataclasses + the seqrec and recsys arch registry.
 
 A framework-free copy of the reference's ``configs/base.py``, cut to the
-classes the serving path reads (``PQConfig``, ``AttentionConfig``,
-``SeqRecConfig``, ``ArchConfig``).  Field names, defaults and validation
-are unchanged, so a config built here describes the same model as its
-namesake in the reference.
+classes the serving paths read (``PQConfig``, ``AttentionConfig``,
+``SeqRecConfig``, ``RecsysConfig``, ``ArchConfig``).  Field names,
+defaults and validation are unchanged, so a config built here describes
+the same model as its namesake in the reference.
 """
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, field
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 #: Largest codebook width each storage dtype can index.
 CODE_DTYPE_CAPACITY = {"int8": 128, "uint8": 256, "int16": 32_768,
@@ -119,6 +119,32 @@ class SeqRecConfig:
 
 
 @dataclass(frozen=True)
+class RecsysConfig:
+    """The CTR/retrieval family: DCN-v2, BST, DIEN and FM."""
+
+    name: str
+    kind: str                  # dcn | bst | dien | fm
+    n_dense: int = 0
+    n_sparse: int = 26
+    embed_dim: int = 16
+    table_rows: Tuple[int, ...] = ()   # one entry per sparse field
+    mlp: Tuple[int, ...] = ()
+    n_cross_layers: int = 0
+    seq_len: int = 0           # behaviour-sequence length (bst / dien)
+    n_blocks: int = 0
+    n_heads: int = 0
+    gru_dim: int = 0           # dien
+    n_items: int = 1_000_000   # retrieval catalogue for retrieval_cand
+    pq: Optional[PQConfig] = field(default_factory=PQConfig)
+    dtype: str = "float32"
+    param_dtype: str = "float32"
+    moment_dtype: str = "float32"
+
+    def total_rows(self) -> int:
+        return sum(self.table_rows)
+
+
+@dataclass(frozen=True)
 class ShapeSpec:
     """One (input-shape x step-kind) cell of the reference's dry-run matrix."""
 
@@ -137,6 +163,16 @@ def seqrec_shapes(n_items: int) -> Tuple[ShapeSpec, ...]:
     )
 
 
+def recsys_shapes() -> Tuple[ShapeSpec, ...]:
+    return (
+        ShapeSpec("train_batch", "train", {"global_batch": 65_536}),
+        ShapeSpec("serve_p99", "serve", {"global_batch": 512}),
+        ShapeSpec("serve_bulk", "serve", {"global_batch": 262_144}),
+        ShapeSpec("retrieval_cand", "retrieval",
+                  {"global_batch": 1, "n_candidates": 1_000_000}),
+    )
+
+
 @dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
@@ -146,10 +182,20 @@ class ArchConfig:
     source: str = ""
     notes: str = ""
 
+    def shape(self, name: str) -> ShapeSpec:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.arch_id}: unknown shape {name!r}")
+
 
 _REGISTRY = {
     "sasrec-recjpq": "sasrec_recjpq",
     "gbert4rec-recjpq": "gbert4rec_recjpq",
+    "dcn-v2": "dcn_v2",
+    "bst": "bst",
+    "dien": "dien",
+    "fm": "fm",
 }
 
 
@@ -169,6 +215,7 @@ def get_reduced(arch_id: str) -> ArchConfig:
 
 __all__ = [
     "PQConfig", "CODE_DTYPE_CAPACITY", "min_code_dtype", "AttentionConfig",
-    "SeqRecConfig", "ShapeSpec", "ArchConfig", "seqrec_shapes",
+    "SeqRecConfig", "RecsysConfig", "ShapeSpec", "ArchConfig",
+    "seqrec_shapes", "recsys_shapes",
     "get_config", "get_reduced",
 ]

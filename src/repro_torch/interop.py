@@ -1,10 +1,12 @@
 """Parameter interop with the reference package, through numpy.
 
-``params_from_jax`` takes the reference's ``init_seqrec`` tree with its
-leaves as numpy arrays (or anything ``np.asarray`` accepts) and returns
-the same tree of torch tensors.  The layouts already agree: dense weights
-stay ``(d_in, d_out)``, codes keep their storage dtype (``uint16`` at
-b=512).  The pruned-cascade metadata ``item_emb.pruned`` (the reference's
+``params_from_jax`` takes a reference parameter tree — ``init_seqrec``'s
+or ``init_recsys``'s, for any of the four recsys kinds — with its leaves
+as numpy arrays (or anything ``np.asarray`` accepts) and returns the same
+tree of torch tensors: dicts stay dicts, lists (the recsys tables, cross
+layers, MLP towers, FM linear weights) stay lists, and a 0-d leaf (FM's
+bias) stays 0-d.  The layouts already agree: dense weights stay
+``(d_in, d_out)``, codes keep their storage dtype (``uint16`` at b=512).  The pruned-cascade metadata ``item_emb.pruned`` (the reference's
 ``PrunedHeadState``, a dataclass) becomes the port's
 :class:`~repro_torch.core.pruning.PrunedHeadState`, field for field; its
 ``uint32`` presence words are carried as ``int32`` with the same bits.
@@ -76,7 +78,8 @@ def _convert(tree: Any, device) -> Any:
 
 
 def params_from_jax(tree: Any, device="cpu") -> Any:
-    """The reference's seqrec parameter tree -> the port's, on ``device``."""
+    """A reference parameter tree (seqrec or recsys) -> the port's, on
+    ``device``."""
     return _convert(tree, device)
 
 

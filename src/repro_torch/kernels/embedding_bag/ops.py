@@ -1,0 +1,30 @@
+"""Public wrapper around the embedding-bag kernel.
+
+A table on the card goes to the CUDA kernel (or the call raises); a table
+on the CPU goes to the kernel's plain version in :mod:`ref`.  The
+reference's TPU tiling knobs (``bags_per_step``, ``interpret`` and the
+padding of ``n_bags`` to a multiple of 8) have no counterpart: the CUDA
+grid takes any number of bags.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.embedding_bag import kernel as _k, ref as _ref
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  weights: torch.Tensor | None = None, *,
+                  mode: str = "sum") -> torch.Tensor:
+    """table (V, d), indices (n_bags, bag) int (-1 = padding, the rest in
+    [0, V)), weights (n_bags, bag) or None -> (n_bags, d) f32: the
+    weighted sum of each bag's rows, or (``mode="mean"``) that sum over
+    ``max(sum of weights, 1)``.  Modes other than "sum" and "mean" raise
+    (the reference treats them as "sum")."""
+    w = _ref.fold_weights(indices, weights)
+    table = table.to(torch.float32)
+    if table.is_cuda or indices.is_cuda:
+        return _k.embedding_bag_cuda(table.contiguous(),
+                                     indices.to(torch.int32).contiguous(),
+                                     w.contiguous(), mode=mode)
+    return _ref.bag_reduce(table, indices, w, mode)

@@ -13,9 +13,9 @@ which TPU kernel each replaces and what bounds it on the card):
 
 The source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``_build/`` beside this
-file (named by the source's hash, so an edited source rebuilds), and
-loaded with ``ctypes``.  Nothing is compiled or loaded on import: CPU-only
-hosts import this module and never call into it.
+file (:mod:`repro_torch.kernels.nvcc`), and loaded with ``ctypes``.
+Nothing is compiled or loaded on import: CPU-only hosts import this
+module and never call into it.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 what its kernel does not take; it launches on the current CUDA stream and
@@ -26,15 +26,12 @@ launches in ``pq_topk_fused_cuda.launches_2d``, and its launches with a
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import List
 
 import torch
+
+from repro_torch.kernels import nvcc as _nvcc
 
 DEFAULT_TILE = 2048
 DEFAULT_BATCH_TILE = 128
@@ -51,52 +48,15 @@ CODE_TYPES = {torch.int8: 0, torch.uint8: 1, torch.int16: 2,
 _lib = None
 
 
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    fallback = Path("/usr/local/cuda/bin/nvcc")
-    if fallback.exists():
-        return str(fallback)
-    raise RuntimeError("nvcc not found on PATH or under /usr/local/cuda; "
-                       "the CUDA kernels cannot be built on this host")
-
-
 def nvcc_command(out: Path, nvcc: str = "nvcc") -> List[str]:
-    """The build line: sm_90a, no fast-math (it flushes subnormal sums to
-    zero and breaks bit-exactness against the plain versions)."""
-    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(out), str(SOURCE)]
-
-
-def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libpqtopk_{digest}.so"
+    """The build line of this package's source (see :mod:`..nvcc`)."""
+    return _nvcc.nvcc_command(SOURCE, out, nvcc)
 
 
 def build() -> Path:
     """Compile the kernels unless this source's library exists; returns
-    its path.  The library is written to a temporary name and renamed, so
-    a process never loads a half-written file from a concurrent build."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(nvcc_command(Path(tmp), nvcc_path()),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        (BUILD_DIR / "ptxas.log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+    its path."""
+    return _nvcc.build(SOURCE, BUILD_DIR, "pqtopk")
 
 
 def _load():

@@ -7,6 +7,9 @@ PyTorch's habits and follow the reference instead:
 * ``apply_norm`` uses eps=1e-6 (not ``nn.LayerNorm``'s 1e-5);
 * ``activation("gelu")`` is the tanh form (``jax.nn.gelu``'s default);
 * RoPE rotates split halves, not interleaved pairs.
+
+The MLP is the reference's: plain two-matrix (``gated=False``, the seqrec
+blocks and BST) or gated GLU (``act(gate(x)) * up(x)``).
 """
 from __future__ import annotations
 
@@ -63,11 +66,22 @@ def apply_norm(p: Params, x: torch.Tensor, kind: str = "rmsnorm",
     return y.to(x.dtype)
 
 
+ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),   # jax.nn.gelu's form
+    "relu": F.relu,
+    "sqrelu": lambda x: torch.square(F.relu(x)),       # Primer / Nemotron
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+}
+
+
 def activation(name: str):
-    """The seqrec models' activation; ``jax.nn.gelu`` is the tanh form."""
-    if name != "gelu":
-        raise ValueError(f"activation {name!r} is not ported")
-    return lambda x: F.gelu(x, approximate="tanh")
+    """The reference's activation table."""
+    if name not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r}; one of "
+                         f"{sorted(ACTIVATIONS)}")
+    return ACTIVATIONS[name]
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -88,13 +102,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def mlp_init(generator: torch.Generator, d_model: int, d_ff: int) -> Params:
-    """The plain two-matrix MLP of the seqrec blocks."""
-    return {
+def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, *,
+             gated: bool) -> Params:
+    p = {
         "up": dense_init(generator, d_model, d_ff),
         "down": dense_init(generator, d_ff, d_model, scale=d_ff ** -0.5),
     }
+    if gated:
+        p["gate"] = dense_init(generator, d_model, d_ff)
+    return p
 
 
 def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
-    return dense(p["down"], activation(act)(dense(p["up"], x)))
+    f = activation(act)
+    h = dense(p["up"], x)
+    h = f(dense(p["gate"], x)) * h if "gate" in p else f(h)
+    return dense(p["down"], h)

@@ -38,7 +38,7 @@ def init_seqrec(generator: torch.Generator, cfg: SeqRecConfig, *,
         "attn": attn_lib.attention_init(generator, acfg, cfg.d_model),
         "ln1": layers.norm_init(cfg.d_model, "layernorm"),
         "ln2": layers.norm_init(cfg.d_model, "layernorm"),
-        "mlp": layers.mlp_init(generator, cfg.d_model, cfg.d_ff),
+        "mlp": layers.mlp_init(generator, cfg.d_model, cfg.d_ff, gated=False),
     } for _ in range(cfg.n_blocks)]
     p: Params = {
         # +1 row for padding id 0.

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+from repro_torch.kernels.embedding_bag import ops as eb_ops, ref as eb_ref
 from repro_torch.kernels.pqtopk import kernel as tkernel, ops as tops
 from repro_torch.kernels.pqtopk import ref as tref
 
@@ -186,3 +188,59 @@ def test_mutable_cascade_matches_masked_oracle(cuda_device):
                 mstate.codes, s, 10, mstate.state, live=mstate.live,
                 query_grouping=grouped, ladder=(4, 8))
             assert torch.equal(v, ov) and torch.equal(i, oi)
+
+
+@pytest.mark.parametrize("v,d,n_bags,bag,mode,weighted", eb_ref.GRID)
+def test_embedding_bag_matches_plain_version(cuda_device, v, d, n_bags, bag,
+                                             mode, weighted):
+    """Bit for bit: the kernel and its plain version take the same steps
+    (slot order, product then add, IEEE division)."""
+    rng = np.random.default_rng(v + d)
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-1, v, (n_bags, bag)).astype(
+        np.int32))
+    w = (torch.from_numpy(rng.uniform(0, 1, (n_bags, bag)).astype(
+        np.float32)) if weighted else None)
+    before = eb_kernel.embedding_bag_cuda.launches
+    got = eb_ops.embedding_bag(table.to(cuda_device), idx.to(cuda_device),
+                               None if w is None else w.to(cuda_device),
+                               mode=mode)
+    torch.cuda.synchronize()
+    assert eb_kernel.embedding_bag_cuda.launches == before + 1
+    torch.testing.assert_close(got.cpu(), eb_ref.embedding_bag(
+        table, idx, w, mode), rtol=0, atol=0)
+
+
+def test_embedding_bag_all_padding_bag(cuda_device):
+    table = torch.randn(32, 8, device=cuda_device)
+    idx = torch.full((4, 3), -1, dtype=torch.int32, device=cuda_device)
+    idx[1, 0] = 5
+    for mode in ("sum", "mean"):
+        out = eb_ops.embedding_bag(table, idx, mode=mode)
+        assert torch.equal(out[[0, 2, 3]], torch.zeros(3, 8,
+                                                       device=cuda_device))
+        assert torch.equal(out[1], table[5])
+
+
+def test_embedding_bag_launch_counter_and_refusals(cuda_device):
+    table = torch.randn(50, 10, device=cuda_device)
+    idx = torch.randint(-1, 50, (7, 4), dtype=torch.int32,
+                        device=cuda_device)
+    w = torch.rand(7, 4, device=cuda_device)
+    before = eb_kernel.embedding_bag_cuda.launches
+    eb_kernel.embedding_bag_cuda(table, idx, w, mode="sum")
+    eb_kernel.embedding_bag_cuda(table, idx, w, mode="mean")
+    assert eb_kernel.embedding_bag_cuda.launches == before + 2
+    with pytest.raises(ValueError, match="CUDA device"):
+        eb_kernel.embedding_bag_cuda(table.cpu(), idx.cpu(), w.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        eb_kernel.embedding_bag_cuda(table.t().contiguous().t(), idx, w)
+    with pytest.raises(ValueError, match="float32"):
+        eb_kernel.embedding_bag_cuda(table.double(), idx, w)
+    with pytest.raises(ValueError, match="float32"):
+        eb_kernel.embedding_bag_cuda(table, idx.long(), w)
+    with pytest.raises(ValueError, match="mode"):
+        eb_kernel.embedding_bag_cuda(table, idx, w, mode="max")
+    with pytest.raises(ValueError, match="empty table"):
+        eb_kernel.embedding_bag_cuda(table[:0], idx, w)
+    assert eb_kernel.embedding_bag_cuda.launches == before + 2
