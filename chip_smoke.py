@@ -27,10 +27,20 @@ time: ``serve_p99`` logits against the same function on the CPU,
 ``retrieval_cand`` through the fused kernel bit-identical to ``pqtopk``,
 DCN-v2's ``serve_bulk``, and launch counts that show the model paths run
 no embedding bag (phase 3).  Both kernel sources are built at once, one
-nvcc each.  Prints the card's name and power limit, kernel and per-method
-timings, a JSON line of kernel records, and last ``{"ok": true, "device":
-...}``.  Any failed phase raises and exits non-zero; without a CUDA
-device it exits non-zero before doing anything.
+nvcc each; a pqtopk instance for a width the configs use (m = 2, 4, 6, 8)
+with a stack frame fails the run.  Prints the card's name and power limit,
+the pqtopk launch plans, kernel and per-method timings, a JSON line of
+kernel records, and last ``{"ok": true, "device": ...}``.  Any failed
+phase raises and exits non-zero; without a CUDA device it exits non-zero
+before doing anything.
+
+Kernel and library times are device times: the calls are captured in a
+CUDA graph and replayed between one pair of CUDA events (``time_ms``), so
+the wrappers' host work is outside the window.  ``--baseline
+LABEL=SOURCE`` builds another ``pqtopk.cu`` (an earlier one) and, at every
+kernel timing, checks it bit for bit against this tree's kernels and times
+it in turns (old, new, new, old); ``--variant`` does the same without the
+check, for timing splits.
 """
 from __future__ import annotations
 
@@ -69,21 +79,159 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median device time of ``fn()`` over ``reps`` runs (CUDA events),
-    after one warm-up run."""
+def time_ms(fn, reps: int, graph: bool = False, windows: int = 5) -> float:
+    """Device time of one ``fn()``: after a warm-up call, ``reps`` calls
+    run between one pair of CUDA events, and the median over ``windows``
+    such windows is divided by ``reps``.  ``graph=True`` captures the
+    ``reps`` calls in one CUDA graph and replays it, so no host work (the
+    wrapper's checks and allocations, the launch itself) sits inside the
+    window: the kernels' and library calls' timings use it.  Without it
+    the calls are issued back to back, which times the host too when a
+    call's device work is shorter than its host work (the plain versions
+    and the paths with host reads, whose device work is longer)."""
     import torch
     fn()
+    torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for _ in range(reps):
+                fn()
+        run = g.replay
+    else:
+        def run():
+            for _ in range(reps):
+                fn()
+    run()
     times = []
-    for _ in range(reps):
+    for _ in range(windows):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        run()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
+    if graph:
+        del g
+        torch.cuda.synchronize()
     return statistics.median(times)
+
+
+# Kernel libraries built from sources outside the tree (``--baseline``,
+# ``--variant``), timed against this tree's kernels in the same call.
+BASELINES = {}
+COMPARISONS = []
+
+
+class Baseline:
+    """The pqtopk kernels of another source, built with the tree's nvcc
+    line into ``_build/`` beside it: one with the earlier C interface (its
+    library exports ``pq_smem_bytes``, and its launches choose their own
+    chunk and grid) or a variant of this tree's (launched with this tree's
+    plan).
+    ``check``: its outputs must equal this tree's kernels' bit for bit (a
+    variant that computes something else for a timing split does not)."""
+
+    def __init__(self, label, source, check):
+        import ctypes
+        from pathlib import Path
+        from repro_torch.kernels import nvcc
+        from repro_torch.kernels.pqtopk import kernel
+        src = Path(source).resolve()
+        self.label, self.check = label, check
+        self.lib = ctypes.CDLL(str(nvcc.build(src, src.parent / "_build",
+                                              f"pqtopk_{label}")))
+        self.old = hasattr(self.lib, "pq_smem_bytes")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        plan = [] if self.old else [ctypes.POINTER(kernel._PlanC)]
+        self.lib.pq_scores_launch.argtypes = [p, i, p, p, i, i, i, i] + plan \
+            + [p]
+        self.lib.pq_topk_fused_launch.argtypes = [p, i, p, p, p, p, p, i, i,
+                                                  i, i, i, i, i, i, i] + plan \
+            + [p]
+
+    def _plan(self, kind, codes, s, **kw):
+        """() for the earlier interface; this tree's plan otherwise."""
+        import ctypes
+        from repro_torch.kernels.pqtopk import kernel
+        if self.old:
+            return ()
+        m, b = codes.shape[1], s.shape[2]
+        return (ctypes.byref(kernel.plan_launch(
+            kind, m=m, b=b, bq=s.shape[0], code_bytes=codes.element_size(),
+            **kw).as_c()),)
+
+    def pq_scores(self, codes, s):
+        import torch
+        from repro_torch.kernels.pqtopk.kernel import CODE_TYPES
+        n, m = codes.shape
+        bq, _, b = s.shape
+        out = torch.empty((bq, n), dtype=torch.float32, device=s.device)
+        err = self.lib.pq_scores_launch(
+            codes.data_ptr(), CODE_TYPES[codes.dtype], s.data_ptr(),
+            out.data_ptr(), n, m, b, bq, *self._plan("scores", codes, s, n=n),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{self.label} pq_scores: CUDA error {err}")
+        return out
+
+    def pq_topk_fused(self, codes, s, k, tile_idx, *, n_items, tile,
+                      batch_tile=0, live=None):
+        import torch
+        from repro_torch.kernels.pqtopk.kernel import CODE_TYPES
+        n, m = codes.shape
+        bq, _, b = s.shape
+        n_slots = tile_idx.shape[-1]
+        out_v = torch.empty((bq, n_slots, k), dtype=torch.float32,
+                            device=s.device)
+        out_i = torch.empty((bq, n_slots, k), dtype=torch.int32,
+                            device=s.device)
+        err = self.lib.pq_topk_fused_launch(
+            codes.data_ptr(), CODE_TYPES[codes.dtype], s.data_ptr(),
+            tile_idx.data_ptr(), None if live is None else live.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), n, n_items, m, b, bq, n_slots,
+            tile, k, batch_tile,
+            *self._plan("fused", codes, s, tile=tile, batch_tile=batch_tile,
+                        live=live is not None),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{self.label} pq_topk_fused: CUDA error {err}")
+        return out_v, out_i
+
+
+def compare_timed(name, fn_new, fn_old, reps=20):
+    """This tree's kernel call ``fn_new()`` against every baseline's
+    ``fn_old(baseline)`` on the same inputs: outputs of checked baselines
+    must be bit-identical; then device times (CUDA graphs) in turns, each
+    baseline before and after the two runs of the new kernel (old, new,
+    new, old).  Returns the new kernel's time (the mean of its two runs;
+    without baselines, one run)."""
+    import torch
+    if not BASELINES:
+        return time_ms(fn_new, reps, graph=True)
+    want = fn_new()
+    for bl in BASELINES.values():
+        if bl.check:
+            got = fn_old(bl)
+            got = got if isinstance(got, tuple) else (got,)
+            want_t = want if isinstance(want, tuple) else (want,)
+            if not all(torch.equal(g, w) for g, w in zip(got, want_t)):
+                raise AssertionError(f"{name}: baseline {bl.label} differs "
+                                     "from this tree's kernel")
+    old = {label: [time_ms(lambda: fn_old(bl), reps, graph=True)]
+           for label, bl in BASELINES.items()}
+    new = [time_ms(fn_new, reps, graph=True) for _ in range(2)]
+    for label, bl in BASELINES.items():
+        old[label].append(time_ms(lambda: fn_old(bl), reps, graph=True))
+    rec = {"name": name, "new_ms": new,
+           **{f"{label}_ms": t for label, t in old.items()}}
+    COMPARISONS.append(rec)
+    print(f"compare {name}: new {new[0]:.4f}/{new[1]:.4f}ms; "
+          + "; ".join(f"{label} {t[0]:.4f}/{t[1]:.4f}ms"
+                      for label, t in old.items())
+          + " (device time, CUDA graphs; order old, new, new, old)")
+    return statistics.mean(new)
 
 
 def bound_ms(nbytes: float, n_adds: float, n_lookups: float, n_sms: int):
@@ -139,40 +287,55 @@ def table_2d(n_tiles, n_rows, n_slots, seed):
     return torch.from_numpy(table)
 
 
+# Kernel check cases: (code dtype, N, m, b, batch sizes).  Every width
+# instance (m = 2, 4, 6, 8 and the generic path at m = 3, 5), the configs'
+# int32 b=256 catalogues, and the lane layouts' edges: B = 1 (QB=1), 3
+# (QB=2), 9 and 65 (a last query chunk of one), N never a multiple of the
+# tile (a ragged last tile).
+CHECK_CASES = (
+    ("int8", 100_003, 8, 128, (5,)), ("uint8", 100_003, 8, 256, (9,)),
+    ("uint16", 100_003, 8, 512, (1, 3, 9, 65)),
+    ("int32", 100_003, 8, 512, (5,)), ("uint8", 4_097, 3, 100, (5,)),
+    ("int32", 50_001, 3, 100, (3,)), ("int16", 30_011, 5, 100, (9,)),
+    ("int32", 100_003, 2, 256, (1, 3, 9, 65)),
+    ("int32", 100_003, 4, 256, (1, 65)), ("int32", 100_003, 6, 256, (1, 9)),
+    ("int32", 100_003, 8, 256, (1,)), ("uint16", 1_271_639, 8, 512, (64,)))
+
+
 def check_kernels(dev):
-    """Each kernel against its plain version, bit-exact, on several code
-    dtypes and shapes; the fused kernel on the identity list, lists with
-    ``-1`` sentinels, and 2D tables at batch_tile 8 and 16.  Returns the
-    max abs error seen per kernel."""
+    """Each kernel against its plain version, bit-exact, over
+    ``CHECK_CASES``: the fused kernel on the identity list and (below full
+    width) a list with ``-1`` sentinels, repeats and the padding tile, at
+    k = 1, 16 and 100, and on 2D tables at batch_tile 8 and 16 with a
+    ragged last batch tile.  Returns the max abs error seen per kernel."""
     import torch
     from repro_torch.kernels.pqtopk import kernel, ops, ref
     err = {"pq_scores": 0.0, "pq_topk_fused": 0.0, "pq_topk_fused_2d": 0.0}
-    cases = [(torch.int8, 100_003, 8, 128), (torch.uint8, 100_003, 8, 256),
-             (torch.uint16, 100_003, 8, 512), (torch.int32, 100_003, 8, 512),
-             (torch.uint8, 4_097, 3, 100), (torch.int32, 50_001, 3, 100),
-             (torch.uint16, 1_271_639, 8, 512)]
-    for i, (dtype, n, m, b) in enumerate(cases):
+    for i, (dname, n, m, b, bqs) in enumerate(CHECK_CASES):
+        dtype = getattr(torch, dname)
         full = n > 1_000_000
-        bq = 64 if full else 5
-        codes, s = pq_inputs(n, m, b, bq, dtype, seed=i, dev=dev)
-        err["pq_scores"] = max(err["pq_scores"], compare(
-            f"pq_scores {dtype} N={n} m={m} b={b}",
-            (kernel.pq_scores_cuda(codes, s),), (ref.pq_scores(codes, s),)))
         tile = min(2048, -(-n // 128) * 128)
         nt = ops.n_tiles(n, tile)
         lists = [torch.arange(nt, dtype=torch.int32)]
         if not full:            # sentinels, repeats, the padding tile
             lists.append(torch.tensor([-1, nt - 1, 0, -1, nt, 0, -1],
                                       dtype=torch.int32))
-        for idx in lists:
-            for k in (1, 16, 100):
+        for bq in bqs:
+            codes, s = pq_inputs(n, m, b, bq, dtype, seed=i, dev=dev)
+            err["pq_scores"] = max(err["pq_scores"], compare(
+                f"pq_scores {dtype} N={n} m={m} b={b} B={bq}",
+                (kernel.pq_scores_cuda(codes, s),),
+                (ref.pq_scores(codes, s),)))
+            for idx in lists:
                 idx_d = idx.to(dev)
-                err["pq_topk_fused"] = max(err["pq_topk_fused"], compare(
-                    f"pq_topk_fused {dtype} N={n} m={m} b={b} k={k}",
-                    kernel.pq_topk_fused_cuda(codes, s, k, idx_d, n_items=n,
-                                              tile=tile),
-                    ref.pq_topk_slots(codes, s, k, idx_d, n_items=n,
-                                      tile=tile)))
+                for k in (1, 16, 100):
+                    err["pq_topk_fused"] = max(err["pq_topk_fused"], compare(
+                        f"pq_topk_fused {dtype} N={n} m={m} b={b} B={bq} "
+                        f"k={k}",
+                        kernel.pq_topk_fused_cuda(codes, s, k, idx_d,
+                                                  n_items=n, tile=tile),
+                        ref.pq_topk_slots(codes, s, k, idx_d, n_items=n,
+                                          tile=tile)))
         # 2D tables: rows that differ with -1 tails, a ragged last batch
         # tile (small cases), one case at an odd tile width.
         tile2 = 1000 if i == 4 else tile
@@ -190,11 +353,16 @@ def check_kernels(dev):
                                               tile=tile2, batch_tile=bt),
                     ref.pq_topk_slots(codes, s2, k, table, n_items=n,
                                       tile=tile2, batch_tile=bt)))
+        # Rows equal to row 3 (the planted N/2 and N-1, and at small m*b
+        # chance repeats) tie at query 0's top: lowest ids first.
         fv, fi = ops.pq_topk(codes, s, 10)
-        if fi[0, :3].tolist() != [3, n // 2, n - 1]:
-            raise AssertionError(f"tie order {fi[0, :3].tolist()}")
+        same = (codes == codes[3]).all(1).nonzero().flatten()[:3].tolist()
+        if fi[0, :3].tolist() != same or n // 2 not in (
+                (codes == codes[3]).all(1).nonzero().flatten().tolist()):
+            raise AssertionError(f"tie order {fi[0, :3].tolist()}, rows "
+                                 f"equal to row 3 start {same}")
         torch.cuda.synchronize()
-        print(f"kernel check: {dtype} N={n} m={m} b={b} B={bq}: bit-exact "
+        print(f"kernel check: {dtype} N={n} m={m} b={b} B={bqs}: bit-exact "
               f"(2D tables at tile {tile2})")
     return err
 
@@ -347,10 +515,14 @@ def skewed_cascade(dev, n_sms, n=1_271_638):
                  "grouping+compaction" if grouped else "compaction":
                      time_ms(compact_fn, 10),
                  "host read": statistics.median(host),
-                 "kernel": time_ms(kern, 20),
+                 "kernel": 0.0,
                  "merge": time_ms(lambda: ops._merge_slot_winners(
                      tv, ti, K_KERNEL), 20)}
         name = "pq_topk_fused_2d" if grouped else "pq_topk_fused_sentinel"
+        split["kernel"] = compare_timed(
+            name, kern, lambda bl: bl.pq_topk_fused(
+                codes, s_k, K_KERNEL, table, n_items=n, tile=tile,
+                batch_tile=bt))
         print(f"split {'grouped, mixed' if grouped else 'batch-any, shared'}"
               f" batch (bitmask, greedy, B={bq}, {table.shape[-1]} slots, "
               "max survivors "
@@ -504,27 +676,29 @@ def check_live_kernel(dev):
     version, bit-exact, on uint16 codes: the identity list at full width
     (capacity 2,097,152, 1,271,639 real rows), and at a smaller capacity
     the identity list, a list with ``-1`` sentinels and 2D tables at
-    batch_tile 8 and 16, at tile 2048 and 1000.  Returns the max abs
-    error."""
+    batch_tile 8 and 16, at tile 2048 and 1000; and the same smaller forms
+    on int32 codes at m=4, b=256 with one query (the QB=1 layout).
+    Returns the max abs error."""
     import torch
     from repro_torch.kernels.pqtopk import kernel, ops, ref
     err = 0.0
-    for ci, (cap, n_real) in enumerate(((2_097_152, 1_271_639),
-                                        (131_072, 100_003))):
+    for ci, (cap, n_real, dtype, m, b, bq) in enumerate((
+            (2_097_152, 1_271_639, torch.uint16, 8, 512, 64),
+            (131_072, 100_003, torch.uint16, 8, 512, 5),
+            (131_072, 100_003, torch.int32, 4, 256, 1))):
         full = cap > 1_000_000
         for tile in ((2048,) if full else (2048, 1000)):
             live = live_mask(cap, n_real, tile, seed=30 + ci).to(dev)
             nt = ops.n_tiles(cap, tile)
-            codes, s = pq_inputs(cap, 8, 512, 64 if full else 5,
-                                 torch.uint16, seed=20 + ci, dev=dev)
+            codes, s = pq_inputs(cap, m, b, bq, dtype, seed=20 + ci, dev=dev)
             forms = [("identity", torch.arange(nt, dtype=torch.int32), 0, s)]
             if not full:
                 forms.append(("sentinel", torch.tensor(
                     [-1, nt - 1, 0, -1, 5, 0, -1], dtype=torch.int32), 0, s))
             for bt in (8, 16):
                 bq2 = 64 if full else 2 * bt + 5
-                _, s2 = pq_inputs(cap, 8, 512, bq2, torch.uint16,
-                                  seed=40 + bt + ci, dev=dev)
+                _, s2 = pq_inputs(cap, m, b, bq2, dtype, seed=40 + bt + ci,
+                                  dev=dev)
                 table = table_2d(nt, -(-bq2 // bt), min(nt, 40 if full else 6),
                                  seed=bt + ci)
                 table[0, :2] = torch.tensor([0, 5])   # a live and a dead tile
@@ -545,9 +719,9 @@ def check_live_kernel(dev):
                     if not bool(live[ids].all()):
                         raise AssertionError(f"live {what}: a dead id won")
             torch.cuda.synchronize()
-            print(f"kernel check live: uint16 cap={cap} real={n_real} "
-                  f"tile={tile}: {', '.join(f[0] for f in forms)} bit-exact "
-                  "(10% tombstones, a dead tile, dead padding)")
+            print(f"kernel check live: {dtype} m={m} B={bq} cap={cap} real="
+                  f"{n_real} tile={tile}: {', '.join(f[0] for f in forms)} "
+                  "bit-exact (10% tombstones, a dead tile, dead padding)")
     return err
 
 
@@ -753,7 +927,10 @@ def mutable_path(params, cfg, dev, n_sms, frozen_stats):
         split = {"bounds": time_ms(lambda: pruning.tile_bounds(state, s), 10),
                  "theta": time_ms(lambda: pruning.theta_seed_ingraph(
                      codes, s, bounds, K_KERNEL, tile=tile, live=live), 10),
-                 "kernel": time_ms(kern, 20)}
+                 "kernel": compare_timed(
+                     "pq_topk_fused_live", kern, lambda bl: bl.pq_topk_fused(
+                         codes, s, K_KERNEL, slots, n_items=cap, tile=tile,
+                         live=live))}
         plain = time_ms(lambda: ref.pq_topk_slots(
             codes, s, K_KERNEL, slots, n_items=cap, tile=tile, live=live), 3)
         print(f"split mutable batch-any (bitmask, greedy, B={MAX_BATCH}, "
@@ -783,7 +960,9 @@ RECSYS_ARCHS = ("bst", "dcn-v2", "dien", "fm")
 def build_all():
     """Build every kernel library at once: one nvcc per source, started
     together; print each kernel instance's ptxas report as the compiler
-    wrote it.  Returns {package: library path}."""
+    wrote it, and fail if a pqtopk instance for a width the configs use
+    (m = 2, 4, 6, 8) has a stack frame.  Returns {package: library
+    path}."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.embedding_bag import kernel as eb_kernel
@@ -792,6 +971,7 @@ def build_all():
     with ThreadPoolExecutor(len(mods)) as pool:
         futs = {name: pool.submit(mod.build) for name, mod in mods.items()}
         libs = {name: f.result() for name, f in futs.items()}
+    framed = []
     for name, lib in libs.items():
         entry, frame = "", ""
         for line in nvcc.report_path(lib).read_text().splitlines():
@@ -802,7 +982,40 @@ def build_all():
             elif "registers" in line:
                 print(f"ptxas {entry}: {line.split(':', 1)[1].strip()}; "
                       f"{frame}")
+                if name == "pqtopk" and any(f"Li{w}E" in entry
+                                            for w in (2, 4, 6, 8)) \
+                        and not frame.startswith("0 bytes stack frame"):
+                    framed.append(entry)
+    if framed:
+        raise AssertionError(f"stack frames in {framed}")
     return libs
+
+
+def print_plans(n_sms):
+    """The launch plans of the main path's and the recsys shapes' kernel
+    calls (kernel.plan_launch): queries per lookup, ring, shared memory and
+    the warps an SM holds (shared memory allowing; ptxas's registers above
+    say whether registers allow the same)."""
+    from repro_torch.kernels.pqtopk import kernel
+    shapes = [("pq_scores main", "scores", dict(m=8, b=512, bq=64,
+                                                code_bytes=2, n=1_271_638)),
+              ("pq_topk_fused main", "fused", dict(m=8, b=512, bq=64,
+                                                   code_bytes=2, tile=2048)),
+              ("pq_topk_fused live", "fused", dict(m=8, b=512, bq=64,
+                                                   code_bytes=2, tile=2048,
+                                                   live=True)),
+              ("pq_topk_fused 2D bt=8", "fused", dict(
+                  m=8, b=512, bq=64, code_bytes=2, tile=2048, batch_tile=8))]
+    shapes += [(f"pq_topk_fused B=1 m={m}", "fused",
+                dict(m=m, b=256, bq=1, code_bytes=4, tile=2048))
+               for m in (2, 4, 6, 8)]
+    for what, kind, kw in shapes:
+        p = kernel.plan_launch(kind, **kw)
+        print(f"plan {what}: qb={p.qb} chunk={p.chunk} depth={p.depth} "
+              f"smem={p.smem}B, {p.blocks_per_sm} block(s) of "
+              f"{kernel.THREADS} threads = "
+              f"{p.blocks_per_sm * kernel.THREADS // 32} warps per SM "
+              f"({n_sms} SMs)")
 
 
 def bag_inputs(v, d, n_bags, bag, weighted, seed, dev):
@@ -903,10 +1116,10 @@ def bag_path(name, table, idx, w, mode, n_sms):
     lib_out = lib_fn()
     torch.testing.assert_close(lib_out, out, rtol=1e-5, atol=1e-6)
     rec = {"ms": time_ms(lambda: kernel.embedding_bag_cuda(
-               table, idx32, wf, mode=mode), 20),
+               table, idx32, wf, mode=mode), 20, graph=True),
            "plain_ms": time_ms(lambda: ref.bag_reduce(table, idx32, wf,
                                                       mode), 5),
-           "library_ms": time_ms(lib_fn, 20)}
+           "library_ms": time_ms(lib_fn, 20, graph=True)}
     nbytes, n_rows = bag_bytes(idx32, d, weighted=w is not None)
     bnd, by, terms = bound_ms(nbytes, 2 * n_bags * bag * d, 0, n_sms)
     rec.update(bound_ms=bnd, bound_by=by, launches=launches, max_abs_err=err)
@@ -1057,10 +1270,14 @@ def recsys_models(dev, n_sms):
                                device=dev)
             split = {"user_query": time_ms(lambda: recsys.user_query(
                          params, b_one, cfg), 10),
-                     "fused kernel": time_ms(
+                     "fused kernel": compare_timed(
+                         f"pq_topk_fused {arch} B=1",
                          lambda: pq_kernel.pq_topk_fused_cuda(
                              head["codes"], s_q, K, idx, n_items=n,
-                             tile=tile), 10)}
+                             tile=tile),
+                         lambda bl: bl.pq_topk_fused(
+                             head["codes"], s_q, K, idx, n_items=n,
+                             tile=tile))}
             methods = ("pqtopk_fused", "pqtopk") + (
                 ("dense", "recjpq", "pqtopk_onehot")
                 if arch == "dcn-v2" else ())
@@ -1088,8 +1305,25 @@ def recsys_models(dev, n_sms):
     return bags
 
 
-def main() -> int:
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", action="append", default=[],
+                    metavar="LABEL=SOURCE",
+                    help="another pqtopk.cu (the earlier C interface, or this "
+                         "tree's) to build and time against this tree's "
+                         "kernels, in turns, at every kernel timing; its "
+                         "outputs must be bit-identical")
+    ap.add_argument("--variant", action="append", default=[],
+                    metavar="LABEL=SOURCE",
+                    help="as --baseline, but timed only (a source that "
+                         "computes something else, for a timing split)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
     import torch
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -1113,11 +1347,24 @@ def main() -> int:
     libs = build_all()
     print(f"build: {time.monotonic() - t0:.1f}s -> "
           + ", ".join(os.path.relpath(p, ROOT) for p in libs.values()))
+    specs = ([(a.split("=", 1), True) for a in args.baseline]
+             + [(a.split("=", 1), False) for a in args.variant])
+    if specs:
+        from concurrent.futures import ThreadPoolExecutor
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(len(specs)) as pool:
+            built = list(pool.map(lambda sp: Baseline(*sp[0], sp[1]), specs))
+        for bl, ((label, source), check) in zip(built, specs):
+            BASELINES[label] = bl
+            print(f"baseline {label}: {source}"
+                  + ("" if check else " (timed only)"))
+        print(f"baselines built in {time.monotonic() - t0:.1f}s")
 
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print_plans(n_sms)
     max_err = check_kernels(dev)
     max_err["embedding_bag"] = check_embedding_bag(dev)
     max_err["pq_topk_fused_live"] = check_live_kernel(dev)
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     forms = skewed_cascade(dev, n_sms)
 
     # ---- full-width model, served through the engine ----------------
@@ -1179,14 +1426,16 @@ def main() -> int:
                            device=dev)
         code_b = codes.element_size()
         recs = []
-        scores_ms = time_ms(lambda: kernel.pq_scores_cuda(codes, s), 20)
+        scores_ms = compare_timed(
+            "pq_scores", lambda: kernel.pq_scores_cuda(codes, s),
+            lambda bl: bl.pq_scores(codes, s))
         scores_plain = time_ms(lambda: ref.pq_scores(codes, s), 5)
         # One library call computing the same sums: embedding_bag over the
         # flattened (m*b, B) table, split k offset by k*b.
         flat = widen(codes) + torch.arange(m, device=dev) * b
         table = s.permute(1, 2, 0).reshape(m * b, bq).contiguous()
         emb_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
-            flat, table, mode="sum"), 20)
+            flat, table, mode="sum"), 20, graph=True)
         bnd, by, terms = bound_ms(
             n * m * code_b + bq * m * b * 4 + bq * n * 4, bq * n * (m - 1),
             bq * n * m, n_sms)
@@ -1199,8 +1448,11 @@ def main() -> int:
             "max_abs_err": max_err["pq_scores"], "ms": scores_ms,
             "plain_ms": scores_plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": emb_ms})
-        topk_ms = time_ms(lambda: kernel.pq_topk_fused_cuda(
-            codes, s, K_KERNEL, idx, n_items=n, tile=tile), 20)
+        topk_ms = compare_timed(
+            "pq_topk_fused", lambda: kernel.pq_topk_fused_cuda(
+                codes, s, K_KERNEL, idx, n_items=n, tile=tile),
+            lambda bl: bl.pq_topk_fused(codes, s, K_KERNEL, idx, n_items=n,
+                                        tile=tile))
         topk_plain = time_ms(lambda: ref.pq_topk_slots(
             codes, s, K_KERNEL, idx, n_items=n, tile=tile), 3)
         n_slots = idx.numel()
@@ -1250,6 +1502,8 @@ def main() -> int:
               f"ms bound {r['bound_ms']:.4f}ms ({r['bound_by']}) library "
               f"{r['library_ms']} launches {r['launches']} on {card}")
     print(f"total: {time.monotonic() - t_start:.1f}s")
+    if COMPARISONS:
+        print(json.dumps({"comparisons": COMPARISONS, "card": card}))
     print(json.dumps({"kernels": recs}))
     print(f"{card}")
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,8 @@ def _inputs(n, m, b, bq, code_dtype, seed):
 
 @pytest.mark.parametrize("code_dtype,n,m,b", [
     ("int8", 777, 8, 128), ("uint8", 4097, 3, 100), ("uint16", 5001, 8, 512),
-    ("int32", 513, 5, 100)])
+    ("int32", 513, 5, 100), ("int32", 3001, 2, 256), ("int32", 3001, 4, 256),
+    ("int32", 3001, 6, 256), ("int32", 2049, 8, 256)])
 def test_kernels_match_plain_versions(cuda_device, code_dtype, n, m, b):
     codes, s = _inputs(n, m, b, 11, code_dtype, seed=5)
     gc, gs = codes.to(cuda_device), s.to(cuda_device)
@@ -84,6 +85,46 @@ def test_fused_kernel_2d_table_matches_plain_version(cuda_device, bt, k,
     with pytest.raises(ValueError, match="rows"):
         tkernel.pq_topk_fused_cuda(gc, gs, k, gi[:1].contiguous(),
                                    n_items=n, tile=tile, batch_tile=bt)
+
+
+@pytest.mark.parametrize("m", [2, 3, 4, 5, 6, 8])
+@pytest.mark.parametrize("bq", [1, 3, 9, 65])
+def test_lane_layouts_match_plain_versions(cuda_device, m, bq):
+    """Each width instance (m = 2, 4, 6, 8; the generic path at 3 and 5)
+    at the lane layouts' edges: B=1 (QB=1), 3 (QB=2), 9 and 65 (a last
+    query chunk of one query); both kernels, the fused one on a list with
+    ``-1`` slots and a ragged last tile at k = 1, 16, 100, on 2D tables at
+    batch tiles 8 and 16, and with the ``live`` mask."""
+    n, b, tile = 5003, 256, 2048
+    codes, s = _inputs(n, m, b, bq, "int32", seed=100 * m + bq)
+    gc, gs = codes.to(cuda_device), s.to(cuda_device)
+    torch.testing.assert_close(tops.pq_scores(gc, gs).cpu(),
+                               tref.pq_scores(codes, s), rtol=0, atol=0)
+    nt = tops.n_tiles(n, tile)
+    idx = torch.tensor([0, -1, nt - 1, 1], dtype=torch.int32)
+    live = torch.from_numpy(np.random.default_rng(m + bq).random(n) > 0.2)
+    for k in (1, 16, 100):
+        for lv in (None, live):
+            got = tops.pq_topk_slots(
+                gc, gs, k, idx.to(cuda_device), n_items=n, tile=tile,
+                live=None if lv is None else lv.to(cuda_device))
+            want = tref.pq_topk_slots(codes, s, k, idx, n_items=n, tile=tile,
+                                      live=lv)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    for bt in (8, 16):
+        rows = -(-bq // bt)
+        table = np.full((rows, 3), -1, np.int32)
+        table[0] = [0, 2, 1]
+        table[rows - 1, :1] = [nt - 1]
+        table = torch.from_numpy(table)
+        for k in (1, 16, 100):
+            got = tops.pq_topk_slots(gc, gs, k, table.to(cuda_device),
+                                     n_items=n, tile=tile, batch_tile=bt)
+            want = tref.pq_topk_slots(codes, s, k, table, n_items=n,
+                                      tile=tile, batch_tile=bt)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
 
 
 def test_pruned_cascade_matches_exhaustive_route(cuda_device):

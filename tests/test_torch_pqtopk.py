@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro.kernels.pqtopk import kernel as jkernel, ops as jops
+from repro_torch.configs import base as tconfigs
 from repro_torch.kernels.pqtopk import kernel as tkernel, ops as tops
 from repro_torch.kernels.pqtopk import ref as tref
 
@@ -38,7 +39,8 @@ def _plant_ties(codes, s):
 
 @pytest.mark.parametrize("code_dtype,n,m,b", [
     ("int8", 777, 8, 128), ("uint8", 1001, 3, 100), ("uint16", 1999, 8, 512),
-    ("int32", 513, 3, 100)])
+    ("int32", 513, 3, 100), ("int32", 700, 2, 256), ("int32", 700, 4, 256),
+    ("int32", 700, 6, 256)])
 def test_pq_scores_bitexact(code_dtype, n, m, b):
     codes, s = _inputs(n, m, b, 5, code_dtype)
     ref = np.asarray(jops.pq_scores(jnp.asarray(codes), jnp.asarray(s),
@@ -51,7 +53,8 @@ def test_pq_scores_bitexact(code_dtype, n, m, b):
 
 @pytest.mark.parametrize("code_dtype,n,m,b,k,tile", [
     ("uint16", 1999, 8, 512, 10, 256), ("uint8", 1001, 3, 100, 16, 128),
-    ("int32", 300, 4, 16, 7, 2048)])
+    ("int32", 300, 4, 16, 7, 2048), ("int32", 1500, 2, 256, 10, 512),
+    ("int32", 1500, 4, 256, 16, 512), ("int32", 1500, 6, 256, 10, 1024)])
 def test_pq_topk_bitexact_with_ties(code_dtype, n, m, b, k, tile):
     codes, s = _plant_ties(*_inputs(n, m, b, 3, code_dtype, seed=1))
     rv, ri = (np.asarray(a) for a in jops.pq_topk(
@@ -119,6 +122,90 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                    n_items=100, tile=128)
     assert tkernel.pq_scores_cuda.launches == 0
     assert tkernel.pq_topk_fused_cuda.launches == 0
+
+
+def _config_widths():
+    """(arch, m, b, code bytes, N) of every config the port ships."""
+    out = []
+    for arch in sorted(tconfigs._REGISTRY):
+        model = tconfigs.get_config(arch).model
+        pq = model.pq
+        out.append((arch, pq.m, pq.b, np.dtype(pq.code_dtype).itemsize,
+                    model.n_items))
+    return out
+
+
+@pytest.mark.parametrize("arch,m,b,code_bytes,n", _config_widths())
+def test_launch_plan_fits_every_config(arch, m, b, code_bytes, n):
+    """Every config's catalogue gets a plan within the card's shared memory
+    at B=1 and 64: the scores kernel, the fused kernel's 1D form and its 2D
+    form at batch tiles 8, 16 and 128, with and without the live mask; the
+    layout's regions do not overlap and QB divides the batch tile."""
+    tile = min(tkernel.DEFAULT_TILE, -(-n // 128) * 128)
+    for bq in (1, 64):
+        plans = [tkernel.plan_launch("scores", m=m, b=b, bq=bq,
+                                     code_bytes=code_bytes, n=n)]
+        for bt in (0, 8, 16, 128):
+            for live in (False, True):
+                plan = tkernel.plan_launch(
+                    "fused", m=m, b=b, bq=bq, code_bytes=code_bytes,
+                    tile=tile, batch_tile=bt, live=live)
+                assert bt == 0 or bt % plan.qb == 0
+                assert plan.sc_off >= plan.qb * m * b * 4
+                assert plan.cand_off - plan.sc_off == 2 * plan.qb * tile * 4
+                assert plan.chunk <= tile
+                if live:
+                    assert plan.stage_bytes - plan.live_off >= plan.chunk + 15
+                plans.append(plan)
+        for plan in plans:
+            assert plan.smem <= tkernel.MAX_SMEM
+            assert plan.blocks_per_sm >= 1
+            assert plan.qb == (1 if bq == 1 else 4)
+            assert plan.smem == plan.ring_off + plan.depth * plan.stage_bytes
+            assert plan.depth >= 2
+            assert all(x % 16 == 0 for x in (plan.ring_off, plan.stage_bytes,
+                                             plan.live_off))
+            assert plan.live_off >= plan.chunk * m * code_bytes + 15
+    # The main path's plans: QB=4, whole 2048-row tiles in the ring (two
+    # stages for the fused kernel, whose score buffers take the room of a
+    # third; four, the ring budget, for the scores kernel), one 512-thread
+    # block an SM.
+    if arch == "sasrec-recjpq":
+        fused = tkernel.plan_launch("fused", m=m, b=b, bq=64,
+                                    code_bytes=code_bytes, tile=tile)
+        assert (fused.qb, fused.chunk, fused.depth,
+                fused.blocks_per_sm) == (4, 2048, 2, 1)
+        scores = tkernel.plan_launch("scores", m=m, b=b, bq=64,
+                                     code_bytes=code_bytes, n=n)
+        assert (scores.qb, scores.chunk, scores.depth,
+                scores.blocks_per_sm) == (4, 2048, 4, 1)
+
+
+@pytest.mark.parametrize("bq,batch_tile,qb", [
+    (1, 0, 1), (2, 0, 2), (3, 0, 2), (4, 0, 4), (9, 0, 4), (65, 0, 4),
+    (64, 8, 4), (64, 6, 2), (64, 5, 1), (3, 8, 2), (1, 16, 1)])
+def test_launch_plan_lane_layout(bq, batch_tile, qb):
+    """QB is the largest of 4, 2, 1 that the batch fills and that divides
+    the 2D table's batch tile (a query chunk never straddles two rows)."""
+    plan = tkernel.plan_launch("fused", m=8, b=512, bq=bq, code_bytes=2,
+                               tile=2048, batch_tile=batch_tile)
+    assert plan.qb == qb
+
+
+def test_launch_plan_shrinks_the_ring_then_refuses():
+    """Wide rows shrink the ring's chunks below the tile; a shape whose S
+    does not fit for one query even with the smallest ring raises before
+    any launch."""
+    plan = tkernel.plan_launch("fused", m=64, b=512, bq=64, code_bytes=4,
+                               tile=2048)
+    assert plan.qb == 1 and plan.chunk < 2048
+    assert plan.smem <= tkernel.MAX_SMEM
+    for kind in ("scores", "fused"):
+        with pytest.raises(ValueError, match="no launch plan fits"):
+            tkernel.plan_launch(kind, m=64, b=1024, bq=1, code_bytes=4,
+                                n=5000, tile=2048)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        tkernel.plan_launch("dense", m=8, b=512, bq=1, code_bytes=2)
 
 
 def test_build_line_targets_hopper_without_fast_math(tmp_path):
