@@ -34,13 +34,20 @@ kernel records, and last ``{"ok": true, "device": ...}``.  Any failed
 phase raises and exits non-zero; without a CUDA device it exits non-zero
 before doing anything.
 
+Both kernels rank in ``lax.top_k``'s total order: a phase plants scores
+at -0.0, +0.0, +-NaN and +-inf (``ref.plant_specials``) and holds
+``pq_scores`` with its top-k, the fused kernel's four forms and B=1
+against the plain versions on the card, bit for bit; the embedding-bag
+check includes tables whose row 0 holds NaN and inf.
+
 Kernel and library times are device times: the calls are captured in a
 CUDA graph and replayed between one pair of CUDA events (``time_ms``), so
 the wrappers' host work is outside the window.  ``--baseline
-LABEL=SOURCE`` builds another ``pqtopk.cu`` (an earlier one) and, at every
-kernel timing, checks it bit for bit against this tree's kernels and times
-it in turns (old, new, new, old); ``--variant`` does the same without the
-check, for timing splits.
+LABEL=SOURCE`` builds another ``pqtopk.cu`` or ``embedding_bag.cu`` (an
+earlier one; which of the two, its library's exports say) and, at every
+timing of that kernel, checks it bit for bit against this tree's kernel
+and times it in turns (old, new, new, old); ``--variant`` does the same
+without the check, for timing splits.
 """
 from __future__ import annotations
 
@@ -125,11 +132,15 @@ COMPARISONS = []
 
 
 class Baseline:
-    """The pqtopk kernels of another source, built with the tree's nvcc
-    line into ``_build/`` beside it: one with the earlier C interface (its
-    library exports ``pq_smem_bytes``, and its launches choose their own
-    chunk and grid) or a variant of this tree's (launched with this tree's
-    plan).
+    """The kernels of another source, built with the tree's nvcc line into
+    ``_build/`` beside it.  ``kind`` is "embedding_bag" when its library
+    exports ``embedding_bag_launch``: a checked one has the earlier
+    interface and is given the folded weights (this tree's kernel would
+    fold them again to the same bits), a variant this tree's (the raw
+    weights, none when unweighted).  Else "pqtopk": one with the earlier C
+    interface (its library exports ``pq_smem_bytes``, and its launches
+    choose their own chunk and grid) or a variant of this tree's (launched
+    with this tree's plan).
     ``check``: its outputs must equal this tree's kernels' bit for bit (a
     variant that computes something else for a timing split does not)."""
 
@@ -141,9 +152,16 @@ class Baseline:
         src = Path(source).resolve()
         self.label, self.check = label, check
         self.lib = ctypes.CDLL(str(nvcc.build(src, src.parent / "_build",
-                                              f"pqtopk_{label}")))
-        self.old = hasattr(self.lib, "pq_smem_bytes")
+                                              f"{src.stem}_{label}")))
         p, i = ctypes.c_void_p, ctypes.c_int
+        self.kind = ("embedding_bag" if hasattr(self.lib,
+                                                "embedding_bag_launch")
+                     else "pqtopk")
+        if self.kind == "embedding_bag":
+            self.lib.embedding_bag_launch.argtypes = [p, p, p, p, i, i, i, i,
+                                                      p]
+            return
+        self.old = hasattr(self.lib, "pq_smem_bytes")
         plan = [] if self.old else [ctypes.POINTER(kernel._PlanC)]
         self.lib.pq_scores_launch.argtypes = [p, i, p, p, i, i, i, i] + plan \
             + [p]
@@ -199,30 +217,55 @@ class Baseline:
             raise RuntimeError(f"{self.label} pq_topk_fused: CUDA error {err}")
         return out_v, out_i
 
+    def embedding_bag(self, table, idx, w, w_folded, mode):
+        import torch
+        out = torch.empty((idx.shape[0], table.shape[1]), dtype=torch.float32,
+                          device=table.device)
+        w = w_folded if self.check else w
+        err = self.lib.embedding_bag_launch(
+            table.data_ptr(), idx.data_ptr(),
+            None if w is None else w.data_ptr(),
+            out.data_ptr(), idx.shape[0], idx.shape[1], table.shape[1],
+            int(mode == "mean"), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{self.label} embedding_bag: CUDA error {err}")
+        return out
 
-def compare_timed(name, fn_new, fn_old, reps=20):
-    """This tree's kernel call ``fn_new()`` against every baseline's
-    ``fn_old(baseline)`` on the same inputs: outputs of checked baselines
-    must be bit-identical; then device times (CUDA graphs) in turns, each
-    baseline before and after the two runs of the new kernel (old, new,
-    new, old).  Returns the new kernel's time (the mean of its two runs;
-    without baselines, one run)."""
+
+def same_bits(got, want):
+    """Tensors equal bit for bit (NaN payloads and signed zeros too)."""
     import torch
-    if not BASELINES:
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            return False
+    return True
+
+
+def compare_timed(name, fn_new, fn_old, reps=20, kind="pqtopk"):
+    """This tree's kernel call ``fn_new()`` against every baseline of
+    ``kind``'s ``fn_old(baseline)`` on the same inputs: outputs of checked
+    baselines must be bit-identical; then device times (CUDA graphs) in
+    turns, each baseline before and after the two runs of the new kernel
+    (old, new, new, old).  Returns the new kernel's time (the mean of its
+    two runs; without baselines, one run)."""
+    bls = {label: bl for label, bl in BASELINES.items() if bl.kind == kind}
+    if not bls:
         return time_ms(fn_new, reps, graph=True)
     want = fn_new()
-    for bl in BASELINES.values():
+    want_t = want if isinstance(want, tuple) else (want,)
+    for bl in bls.values():
         if bl.check:
             got = fn_old(bl)
-            got = got if isinstance(got, tuple) else (got,)
-            want_t = want if isinstance(want, tuple) else (want,)
-            if not all(torch.equal(g, w) for g, w in zip(got, want_t)):
+            if not same_bits(got if isinstance(got, tuple) else (got,),
+                             want_t):
                 raise AssertionError(f"{name}: baseline {bl.label} differs "
                                      "from this tree's kernel")
     old = {label: [time_ms(lambda: fn_old(bl), reps, graph=True)]
-           for label, bl in BASELINES.items()}
+           for label, bl in bls.items()}
     new = [time_ms(fn_new, reps, graph=True) for _ in range(2)]
-    for label, bl in BASELINES.items():
+    for label, bl in bls.items():
         old[label].append(time_ms(lambda: fn_old(bl), reps, graph=True))
     rec = {"name": name, "new_ms": new,
            **{f"{label}_ms": t for label, t in old.items()}}
@@ -261,16 +304,18 @@ def pq_inputs(n, m, b, bq, dtype, seed, dev):
 
 def compare(what, got, want):
     """Kernel outputs (values first, then ids) against their plain
-    version, bit-exact; returns the max abs value error over entries
-    finite in both."""
+    version, bit for bit (NaN payloads and signed zeros too); returns the
+    max abs value error over entries finite in both."""
     import torch
     gv, wv = got[0], want[0]
     both = torch.isfinite(gv) & torch.isfinite(wv)
     err = torch.where(both, gv - wv, 0.0).abs().max().item()
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"{what}: {int((gv != wv).sum())} values and "
-                             f"{sum(int((g != w).sum()) for g, w in zip(got[1:], want[1:]))}"
-                             " ids differ")
+    if not same_bits(got, want):
+        raise AssertionError(
+            f"{what}: {int((gv.view(torch.int32) != wv.view(torch.int32)).sum())}"
+            f" value bits and "
+            f"{sum(int((g != w).sum()) for g, w in zip(got[1:], want[1:]))}"
+            " ids differ")
     return err
 
 
@@ -364,6 +409,89 @@ def check_kernels(dev):
         torch.cuda.synchronize()
         print(f"kernel check: {dtype} N={n} m={m} b={b} B={bqs}: bit-exact "
               f"(2D tables at tile {tile2})")
+    return err
+
+
+# Planted-order cases: (N, m, b, batch sizes).  m = 1 keeps a planted -NaN
+# in the scores (the card's adds return +NaN); B = 1 is the QB=1 layout,
+# B = 64 the main path's batch.
+SPECIAL_CASES = ((100_003, 1, 64, (1, 5)), (100_003, 8, 512, (1, 64)),
+                 (50_001, 4, 256, (9,)))
+
+
+def check_specials(dev):
+    """Scores planted at -0.0, +0.0, +-NaN and +-inf (``ref.plant_specials``,
+    the last tile mostly -NaN past its ``-inf`` padding): ``pq_scores``,
+    its top-k through ``core.topk``, and the fused kernel's four forms (the
+    identity list, ``-1`` sentinels, a 2D table, the ``live`` mask) at
+    k = 1, 16 and 100, each against its plain version run on the card, bit
+    for bit.  Returns the max abs error per kernel (entries finite in
+    both)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import topk as topk_lib
+    from repro_torch.kernels.pqtopk import kernel, ops, ref
+    err = {"pq_scores": 0.0, "pq_topk_fused": 0.0, "pq_topk_fused_2d": 0.0,
+           "pq_topk_fused_live": 0.0}
+    tile = 2048
+    for i, (n, m, b, bqs) in enumerate(SPECIAL_CASES):
+        rng = np.random.default_rng(200 + i)
+        nt = ops.n_tiles(n, tile)
+        for bq in bqs:
+            c_np, s_np = ref.plant_specials(
+                rng.integers(0, b, (n, m)).astype(np.uint16),
+                rng.standard_normal((bq, m, b)).astype(np.float32), tile,
+                seed=i)
+            codes = torch.from_numpy(c_np).to(dev)
+            s = torch.from_numpy(s_np).to(dev)
+            what = f"specials N={n} m={m} b={b} B={bq}"
+            sc = kernel.pq_scores_cuda(codes, s)
+            err["pq_scores"] = max(err["pq_scores"], compare(
+                f"pq_scores {what}", (sc,), (ref.pq_scores(codes, s),)))
+            for k in (16, 100):
+                compare(f"pq_scores + topk {what} k={k}",
+                        topk_lib.topk(sc, k), ref.pq_topk(codes, s, k))
+            bt = 8
+            width = min(nt - 1, 6)
+            table = np.full((-(-bq // bt), width), -1, np.int32)
+            table[-1, :2] = [0, nt - 1]
+            table[0] = np.sort(rng.choice(nt - 1, width, replace=False))
+            table[0, -1] = nt - 1
+            live = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+            forms = [("identity", torch.arange(nt, dtype=torch.int32), 0,
+                      None, "pq_topk_fused"),
+                     ("sentinel", torch.tensor([nt - 1, -1, 0, -1, 1],
+                                               dtype=torch.int32), 0, None,
+                      "pq_topk_fused"),
+                     ("2D", torch.from_numpy(table), bt, None,
+                      "pq_topk_fused_2d"),
+                     ("live", torch.arange(nt, dtype=torch.int32), 0, live,
+                      "pq_topk_fused_live")]
+            for form, idx, batch_tile, lv, name in forms:
+                idx = idx.to(dev)
+                for k in (1, 16, 100):
+                    err[name] = max(err[name], compare(
+                        f"pq_topk_fused {form} {what} k={k}",
+                        kernel.pq_topk_fused_cuda(
+                            codes, s, k, idx, n_items=n, tile=tile,
+                            batch_tile=batch_tile, live=lv),
+                        ref.pq_topk_slots(codes, s, k, idx, n_items=n,
+                                          tile=tile, batch_tile=batch_tile,
+                                          live=lv)))
+            # -0.0, +0.0, +inf, -inf, a +NaN, and at m = 1 a -NaN.
+            bits = torch.unique(sc.view(torch.int32))
+            seen = [bool((bits == x).any()) for x in (-2 ** 31, 0, 0x7f800000,
+                                                      -0x800000)]
+            seen.append(bool((bits > 0x7f800000).any()))
+            if m == 1:
+                seen.append(bool(((bits > -0x800000) & (bits < 0)).any()))
+            if not all(seen):
+                raise AssertionError(f"{what}: a planted score class is "
+                                     f"missing ({seen})")
+        torch.cuda.synchronize()
+        print(f"kernel check specials: N={n} m={m} b={b} B={bqs}: scores at "
+              "+-0, +-NaN, +-inf; pq_scores + topk and the fused kernel's "
+              "four forms bit-exact against the plain versions on the card")
     return err
 
 
@@ -1018,13 +1146,17 @@ def print_plans(n_sms):
               f"({n_sms} SMs)")
 
 
-def bag_inputs(v, d, n_bags, bag, weighted, seed, dev):
-    """A table, indices in [-1, v) (bags 0 and n_bags-1 all padding) and
-    weights, from numpy with ``seed``."""
+def bag_inputs(v, d, n_bags, bag, weighted, seed, dev, row0=False):
+    """A table (``row0``: row 0 holds NaN and +-inf), indices in [-1, v)
+    (bags 0 and n_bags-1 all padding) and weights, from numpy with
+    ``seed``."""
     import numpy as np
     import torch
+    from repro_torch.kernels.embedding_bag import ref
     rng = np.random.default_rng(seed)
     table = rng.standard_normal((v, d)).astype(np.float32)
+    if row0:
+        ref.plant_row0(table)
     idx = rng.integers(-1, v, (n_bags, bag)).astype(np.int32)
     idx[[0, n_bags - 1]] = -1
     w = rng.uniform(0, 1, (n_bags, bag)).astype(np.float32)
@@ -1034,13 +1166,17 @@ def bag_inputs(v, d, n_bags, bag, weighted, seed, dev):
 
 def check_embedding_bag(dev):
     """Phase 1: the kernel through its wrapper against the plain version,
-    bit for bit, over ``ref.GRID`` (each case with all-padding bags); each
-    call must launch the kernel once.  Returns the max abs error."""
+    bit for bit, over ``ref.GRID``, ``ref.LAYOUT_GRID`` (the kernel's
+    other layouts) and ``ref.ROW0_GRID`` (row 0 NaN and +-inf; each case
+    with all-padding bags); each call must launch the kernel once.
+    Returns the max abs error over entries finite in both."""
     import torch
     from repro_torch.kernels.embedding_bag import kernel, ops, ref
     err = 0.0
-    for i, (v, d, n_bags, bag, mode, weighted) in enumerate(ref.GRID):
-        table, idx, w = bag_inputs(v, d, n_bags, bag, weighted, i, dev)
+    cases = ([(c, False) for c in ref.GRID + ref.LAYOUT_GRID]
+             + [(c, True) for c in ref.ROW0_GRID])
+    for i, ((v, d, n_bags, bag, mode, weighted), row0) in enumerate(cases):
+        table, idx, w = bag_inputs(v, d, n_bags, bag, weighted, i, dev, row0)
         before = kernel.embedding_bag_cuda.launches
         got = ops.embedding_bag(table, idx, w, mode=mode)
         torch.cuda.synchronize()
@@ -1049,17 +1185,22 @@ def check_embedding_bag(dev):
                                  f"{kernel.embedding_bag_cuda.launches - before}"
                                  " times, expected 1")
         want = ref.embedding_bag(table, idx, w, mode)
-        err = max(err, (got - want).abs().max().item())
-        if not torch.equal(got, want):
+        both = torch.isfinite(got) & torch.isfinite(want)
+        err = max(err, torch.where(both, got - want, 0.0).abs().max().item())
+        if not same_bits((got,), (want,)):
             raise AssertionError(
                 f"embedding_bag V={v} d={d} n_bags={n_bags} bag={bag} {mode} "
-                f"weighted={weighted}: {int((got != want).sum())} values "
-                "differ from the plain version")
-        if not torch.equal(got[0], torch.zeros_like(got[0])):
-            raise AssertionError("embedding_bag: an all-padding bag is not 0")
-    print(f"kernel check embedding_bag: {len(ref.GRID)} shapes (the "
-          "reference's grid, d in {10, 18}, n_bags not a multiple of 8, "
-          "all-padding bags) bit-exact")
+                f"weighted={weighted} row0={row0}: value bits differ from "
+                "the plain version")
+        pad0 = got[0].isnan().all() if row0 else torch.equal(
+            got[0], torch.zeros_like(got[0]))
+        if not pad0:
+            raise AssertionError(f"embedding_bag row0={row0}: an all-padding "
+                                 "bag is not 0 (NaN with a NaN row 0)")
+    print(f"kernel check embedding_bag: {len(cases)} shapes (the reference's "
+          "grid, d from 3 to 600, bags past 32 slots, n_bags not a multiple "
+          "of 8 and past 8,192, all-padding bags, row 0 NaN and +-inf) "
+          "bit-exact")
     return err
 
 
@@ -1082,9 +1223,11 @@ def bag_bytes(idx, d, weighted):
 def bag_path(name, table, idx, w, mode, n_sms):
     """Phase 2, one input: ``lookup_bag(use_kernel=True)`` with the launch
     count set to 0 just before and read just after (one launch), held
-    bit for bit against the plain version; then the kernel, its plain
-    version and ``F.embedding_bag`` timed on the folded weights, and the
-    byte bound of :func:`bag_bytes`.  Returns (output, record)."""
+    bit for bit against the plain version; then the kernel and its plain
+    version timed (each applies the padding mask itself; the kernel in
+    turns with any ``embedding_bag.cu`` baseline), ``F.embedding_bag`` on
+    the folded weights and the byte bound of :func:`bag_bytes`.  Returns
+    (output, record)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.embedding_bag import kernel, ref
@@ -1098,7 +1241,7 @@ def bag_path(name, table, idx, w, mode, n_sms):
                              f"{launches} times, expected 1")
     want = ref.embedding_bag(table, idx, w, mode)
     err = (out - want).abs().max().item()
-    if not torch.equal(out, want):
+    if not same_bits((out,), (want,)):
         raise AssertionError(f"{name}: {int((out != want).sum())} values "
                              "differ from the plain version")
     idx32 = idx.to(torch.int32).contiguous()
@@ -1115,9 +1258,14 @@ def bag_path(name, table, idx, w, mode, n_sms):
                                          mode="sum")
     lib_out = lib_fn()
     torch.testing.assert_close(lib_out, out, rtol=1e-5, atol=1e-6)
-    rec = {"ms": time_ms(lambda: kernel.embedding_bag_cuda(
-               table, idx32, wf, mode=mode), 20, graph=True),
-           "plain_ms": time_ms(lambda: ref.bag_reduce(table, idx32, wf,
+    w32 = None if w is None else w.to(torch.float32).contiguous()
+    rec = {"ms": compare_timed(
+               f"embedding_bag {name}",
+               lambda: kernel.embedding_bag_cuda(table, idx32, w32,
+                                                 mode=mode),
+               lambda bl: bl.embedding_bag(table, idx32, w32, wf, mode),
+               kind="embedding_bag"),
+           "plain_ms": time_ms(lambda: ref.bag_reduce(table, idx32, w32,
                                                       mode), 5),
            "library_ms": time_ms(lib_fn, 20, graph=True)}
     nbytes, n_rows = bag_bytes(idx32, d, weighted=w is not None)
@@ -1129,6 +1277,12 @@ def bag_path(name, table, idx, w, mode, n_sms):
           f"({by}: {nbytes / 1e6:.1f} MB, {n_rows} distinct rows of "
           f"{n_bags * bag} slots; {terms}); bit-exact, launches "
           f"{launches}")
+    if any(bl.kind == "embedding_bag" for bl in BASELINES.values()):
+        # Only beside an embedding_bag baseline: one sort of the indices,
+        # the least a pass that deduplicated the batch's rows would add.
+        sort_ms = time_ms(lambda: torch.sort(idx32.reshape(-1)), 20,
+                          graph=True)
+        print(f"bag {name}: torch.sort of its indices {sort_ms:.4f}ms")
     return out, rec
 
 
@@ -1311,9 +1465,10 @@ def parse_args(argv):
     ap.add_argument("--baseline", action="append", default=[],
                     metavar="LABEL=SOURCE",
                     help="another pqtopk.cu (the earlier C interface, or this "
-                         "tree's) to build and time against this tree's "
-                         "kernels, in turns, at every kernel timing; its "
-                         "outputs must be bit-identical")
+                         "tree's) or embedding_bag.cu to build and time "
+                         "against this tree's kernel, in turns, at every "
+                         "timing of that kernel; its outputs must be "
+                         "bit-identical")
     ap.add_argument("--variant", action="append", default=[],
                     metavar="LABEL=SOURCE",
                     help="as --baseline, but timed only (a source that "
@@ -1363,8 +1518,11 @@ def main(argv=None) -> int:
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     print_plans(n_sms)
     max_err = check_kernels(dev)
+    for name, e in check_specials(dev).items():
+        max_err[name] = max(max_err.get(name, 0.0), e)
     max_err["embedding_bag"] = check_embedding_bag(dev)
-    max_err["pq_topk_fused_live"] = check_live_kernel(dev)
+    max_err["pq_topk_fused_live"] = max(max_err["pq_topk_fused_live"],
+                                        check_live_kernel(dev))
     forms = skewed_cascade(dev, n_sms)
 
     # ---- full-width model, served through the engine ----------------

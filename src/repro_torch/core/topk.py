@@ -1,8 +1,11 @@
 """Top-K selection: exact, tiled (two-stage) and approximate block-max.
 
-Ties go to the lowest index, as ``lax.top_k`` breaks them in the
-reference.  ``torch.topk`` promises no order among equal values, so every
-selection here is a stable descending sort.
+Every selection ranks in ``lax.top_k``'s total order, the reference's:
+larger first, +0.0 above -0.0, +NaN above +inf and -NaN below -inf (NaNs
+by their bits), ties to the lowest index.  :func:`order_key` maps floats
+to integers in that order, and a stable descending sort of the keys gives
+it; ``torch.sort`` on the floats would tie +-0 and put NaN of either sign
+first, and ``torch.topk`` promises no order among equal values.
 """
 from __future__ import annotations
 
@@ -14,11 +17,23 @@ import torch.nn.functional as F
 NEG_INF = float("-inf")
 
 
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """int32 keys in ``lax.top_k``'s order of float32 ``x``: the bits with
+    the magnitude bits flipped where the sign bit is set, ``bits ^ ((bits
+    >> 31) & 0x7fffffff)``."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"top-k ranks float32 scores, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7fffffff)
+
+
 def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k along the last axis -> (values, int32 indices); ties to
-    the lowest index."""
-    v, i = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return v[..., :k], i[..., :k].to(torch.int32)
+    """Exact top-k along the last axis -> (values, int32 indices), in
+    ``lax.top_k``'s order; ties to the lowest index."""
+    _, i = torch.sort(order_key(scores), dim=-1, descending=True,
+                      stable=True)
+    i = i[..., :k]
+    return torch.gather(scores, -1, i), i.to(torch.int32)
 
 
 def tiled_topk(scores: torch.Tensor, k: int, tile: int = 8192,
@@ -46,7 +61,12 @@ def tiled_topk(scores: torch.Tensor, k: int, tile: int = 8192,
 def approx_topk_maxblock(scores: torch.Tensor, k: int, oversample: int = 2,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Approximate top-k: split N into k*oversample blocks and keep each
-    block's maximum (first index on ties), then the top-k of the maxima."""
+    block's maximum, then the top-k of the maxima.
+
+    As the reference's ``max``/``argmax``: the index is the first maximum
+    (the first NaN where the block has one); the value propagates NaN and
+    is +0.0 where the block's maximum is zero and it holds a +0.0, though
+    the first maximum may be a -0.0."""
     b, n = scores.shape
     n_blocks = min(k * oversample, n)
     pad = (-n) % n_blocks
@@ -54,6 +74,8 @@ def approx_topk_maxblock(scores: torch.Tensor, k: int, oversample: int = 2,
         scores = F.pad(scores, (0, pad), value=NEG_INF)
     blk = scores.reshape(b, n_blocks, -1)
     bv, bi = blk.max(dim=2)
+    pos_zero = ((blk == 0) & ~torch.signbit(blk)).any(dim=2)
+    bv = torch.where((bv == 0) & pos_zero, 0.0, bv)
     width = blk.shape[2]
     gi = bi.to(torch.int32) + (torch.arange(
         n_blocks, dtype=torch.int32, device=scores.device) * width)[None, :]

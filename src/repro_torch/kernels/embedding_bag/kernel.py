@@ -50,29 +50,32 @@ def _load():
 
 
 def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
-                       w: torch.Tensor, *, mode: str = "sum") -> torch.Tensor:
-    """table (V, d) f32, indices (n_bags, bag) int32 in [-1, V), w (n_bags,
-    bag) f32 with the padding mask folded in, all contiguous on one CUDA
-    device -> (n_bags, d) f32.  The indices are not read back to check
-    their range."""
+                       weights: torch.Tensor | None = None, *,
+                       mode: str = "sum") -> torch.Tensor:
+    """table (V, d) f32, indices (n_bags, bag) int32 in [-1, V), weights
+    (n_bags, bag) f32 or None (unweighted: no weights are read), all
+    contiguous on one CUDA device -> (n_bags, d) f32.  The kernel applies
+    the padding mask.  The indices are not read back to check their
+    range."""
+    w = indices if weights is None else weights   # checked alike
     if not (table.is_cuda and indices.device == table.device
             and w.device == table.device):
-        raise ValueError(f"CUDA kernel needs table, indices and w on one "
-                         f"CUDA device, got {table.device}, {indices.device} "
-                         f"and {w.device}")
-    if table.dtype != torch.float32 or w.dtype != torch.float32 \
-            or indices.dtype != torch.int32:
+        raise ValueError(f"CUDA kernel needs table, indices and weights on "
+                         f"one CUDA device, got {table.device}, "
+                         f"{indices.device} and {w.device}")
+    if table.dtype != torch.float32 or indices.dtype != torch.int32 \
+            or (weights is not None and weights.dtype != torch.float32):
         raise ValueError(f"need a float32 table, int32 indices and float32 "
                          f"weights, got {table.dtype}, {indices.dtype} and "
                          f"{w.dtype}")
     if table.dim() != 2 or indices.dim() != 2 \
             or tuple(w.shape) != tuple(indices.shape):
-        raise ValueError(f"need table (V, d), indices and w (n_bags, bag), "
-                         f"got {tuple(table.shape)}, {tuple(indices.shape)} "
-                         f"and {tuple(w.shape)}")
+        raise ValueError(f"need table (V, d), indices and weights (n_bags, "
+                         f"bag), got {tuple(table.shape)}, "
+                         f"{tuple(indices.shape)} and {tuple(w.shape)}")
     if not (table.is_contiguous() and indices.is_contiguous()
             and w.is_contiguous()):
-        raise ValueError("table, indices and w must be contiguous")
+        raise ValueError("table, indices and weights must be contiguous")
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     n_bags, bag = indices.shape
@@ -85,7 +88,8 @@ def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
                       device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _load().embedding_bag_launch(
-        table.data_ptr(), indices.data_ptr(), w.data_ptr(), out.data_ptr(),
+        table.data_ptr(), indices.data_ptr(),
+        None if weights is None else weights.data_ptr(), out.data_ptr(),
         n_bags, bag, table.shape[1], int(mode == "mean"), stream)
     if err != 0:
         raise RuntimeError(f"embedding_bag launch failed: CUDA error {err} "

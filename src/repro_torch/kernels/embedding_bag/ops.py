@@ -1,7 +1,8 @@
 """Public wrapper around the embedding-bag kernel.
 
 A table on the card goes to the CUDA kernel (or the call raises); a table
-on the CPU goes to the kernel's plain version in :mod:`ref`.  The
+on the CPU goes to the kernel's plain version in :mod:`ref`.  Both apply
+the padding mask themselves, slot by slot, so nothing is folded here.  The
 reference's TPU tiling knobs (``bags_per_step``, ``interpret`` and the
 padding of ``n_bags`` to a multiple of 8) have no counterpart: the CUDA
 grid takes any number of bags.
@@ -21,10 +22,10 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     weighted sum of each bag's rows, or (``mode="mean"``) that sum over
     ``max(sum of weights, 1)``.  Modes other than "sum" and "mean" raise
     (the reference treats them as "sum")."""
-    w = _ref.fold_weights(indices, weights)
     table = table.to(torch.float32)
     if table.is_cuda or indices.is_cuda:
-        return _k.embedding_bag_cuda(table.contiguous(),
-                                     indices.to(torch.int32).contiguous(),
-                                     w.contiguous(), mode=mode)
-    return _ref.bag_reduce(table, indices, w, mode)
+        return _k.embedding_bag_cuda(
+            table.contiguous(), indices.to(torch.int32).contiguous(),
+            None if weights is None
+            else weights.to(torch.float32).contiguous(), mode=mode)
+    return _ref.bag_reduce(table, indices, weights, mode)

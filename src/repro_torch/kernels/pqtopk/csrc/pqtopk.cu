@@ -20,7 +20,13 @@
 //   Per (item-tile slot, query): the tile's exact top-K, global ids, ties to
 //   the lowest id, ids >= n_items (and dead rows) -inf; a slot whose
 //   tile_idx is -1 writes (-inf, n_items).  Output (B, n_slots, K) f32 + i32;
-//   the cross-slot merge is left to the caller.
+//   the cross-slot merge is left to the caller.  The order is lax.top_k's
+//   total order, the reference's: +0.0 above -0.0, +NaN first, -NaN last
+//   (below -inf and below the -inf padding of a ragged tile), NaNs by their
+//   bits.  Every comparison that ranks a score compares the int32 key
+//   order_key(x) = bits ^ ((bits >> 31) & 0x7fffffff), made once where a
+//   score is written for the selection; the winners' values are the keys
+//   mapped back, bit for bit.
 //
 // What bounds them.  Both gather B*N*m f32 values of S from shared memory
 // at random codes.  pq_scores also writes B*N f32 (325 MB at the main shape,
@@ -61,11 +67,11 @@
 //   rest score.  Each query carries a threshold predicted from the slot
 //   two before (the value ranked 2K - 1 there); the scoring warps append
 //   the items that reach it to the query's candidate buffer (a shared
-//   atomic, ~2K per slot on random scores) as they write the slot's scores
-//   to one of two (QB, tile) score buffers.  In the next chunk's barrier
-//   interval, while the next slot is scored, the selecting warp ranks the
-//   candidates by counting the ones that beat each in (value desc, id asc)
-//   order; when at least K and at most the buffer's 64 items reached the
+//   atomic, ~2K per slot on random scores) as they write the slot's score
+//   keys (order_key) to one of two (QB, tile) buffers.  In the next chunk's
+//   barrier interval, while the next slot is scored, the selecting warp
+//   ranks the candidates by counting the ones that beat each in (key desc,
+//   id asc) order; when at least K and at most the buffer's 64 items reached the
 //   threshold, the K best of them are exactly the tile's top-K.  Otherwise
 //   (the block's first two slots, a shifted score distribution) it selects
 //   from the score buffer: theta0 = the ~1.5K-th largest lane maximum, the
@@ -89,6 +95,7 @@
 // first error seen) as an int.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -104,7 +111,7 @@ struct Plan {
   int smem;         // dynamic shared memory bytes
   int sc_off;       // fused: 2 score buffers of (qb, tile) f32
   int cand_off;     // fused: the queries' candidates, then a buffer of
-                    // kCandCap float2 per warp
+                    // kCandCap int2 per warp
   int ring_off;     // ring of `depth` stages
   int stage_bytes;  // bytes of one stage
   int live_off;     // live bytes within a stage (form d)
@@ -139,12 +146,13 @@ struct Args {
 };
 
 // Per-query selection state of the fused kernel, two sets (one per score
-// buffer): the threshold predicted for the slot scored into the buffer,
-// the count of its items at or above it, and the first kCandCap of them.
+// buffer): the threshold key predicted for the slot scored into the
+// buffer, the count of its items at or above it, and the first kCandCap
+// of them.
 struct QueryCands {
-  float theta[2][kMaxQB];
+  int theta[2][kMaxQB];
   int count[2][kMaxQB];
-  float2 cand[2][kMaxQB][kCandCap];   // (value, column as int bits)
+  int2 cand[2][kMaxQB][kCandCap];     // (key, column)
 };
 
 template <int QB> struct VecOf;
@@ -162,6 +170,9 @@ __device__ __forceinline__ float4 vadd(float4 a, float4 b) {
 __device__ __forceinline__ float vget(float a, int) { return a; }
 __device__ __forceinline__ float vget(float2 a, int j) { return j ? a.y : a.x; }
 __device__ __forceinline__ float vget(float4 a, int j) {
+  return j == 0 ? a.x : j == 1 ? a.y : j == 2 ? a.z : a.w;
+}
+__device__ __forceinline__ int vget(int4 a, int j) {
   return j == 0 ? a.x : j == 1 ? a.y : j == 2 ? a.z : a.w;
 }
 template <typename V>
@@ -445,9 +456,21 @@ __device__ __forceinline__ void score_chunk(const Args& a,
   }
 }
 
-// a beats b: larger value, or equal value and lower column.
-__device__ __forceinline__ bool beats(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
+// lax.top_k's total order as signed integers: -NaN < -inf < .. < -0.0 <
+// +0.0 < .. < +inf < +NaN.  The map is its own inverse.
+__device__ __forceinline__ int order_key(float x) {
+  const int b = __float_as_int(x);
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+__device__ __forceinline__ float key_value(int key) {
+  return __int_as_float(key ^ ((key >> 31) & 0x7fffffff));
+}
+constexpr int kNegInfKey = static_cast<int>(0x807fffff);   // order_key(-inf)
+constexpr int kNoTheta = 0x7fffffff;  // "no prediction"; see next_theta
+
+// a beats b: larger key, or equal key and lower column.
+__device__ __forceinline__ bool beats(int ak, int ai, int bk, int bi) {
+  return ak > bk || (ak == bk && ai < bi);
 }
 
 // The selection below runs on warps of their own while the scoring warps
@@ -455,59 +478,62 @@ __device__ __forceinline__ bool beats(float av, int ai, float bv, int bi) {
 // shared-memory round trips waits behind that queue: it is written to need
 // few of them (batched 16-byte loads, one atomic, no shuffle chains).
 
-// The next slots' threshold as stored: -inf would take every item, so it
-// becomes +inf, "no prediction" (no candidates: the exact fallback).
-__device__ __forceinline__ float next_theta(float v) {
-  return v == -INFINITY ? INFINITY : v;
+// The next slots' threshold key as stored.  One at or below -inf's would
+// take every item but -NaN ones, so it becomes kNoTheta, "no prediction":
+// the largest key, which only canonical +NaN items (0x7fffffff, what the
+// card's adds return for NaN) reach.  The selection stays exact whatever
+// the threshold: it ranks the candidates only when every item at or above
+// the threshold is one of them and there are at least K, so a collision of
+// kNoTheta with real +NaN scores is one more exact case, not a sentinel
+// clash.
+__device__ __forceinline__ int next_theta(int key) {
+  return key <= kNegInfKey ? kNoTheta : key;
 }
 
-// One warp ranks `total` (<= kCandCap) candidates (value, column) in `cand`
+// One warp ranks `total` (<= kCandCap) candidates (key, column) in `cand`
 // by the candidates that beat them (ranks are distinct: columns are),
 // writes rank r < k to ov/oi[r] with global id base + column, and stores
-// the value ranked kt - 1 (kt <= total) to *theta.  When every item of the
-// tile at or above some value is a candidate and there are at least k of
+// the key ranked kt - 1 (kt <= total) to *theta.  When every item of the
+// tile at or above some key is a candidate and there are at least k of
 // them, the k best are exactly the tile's top-k.  Each lane reads the
 // candidates 16 at a time, 8 independent 16-byte broadcast loads.
-__device__ __forceinline__ void rank_cands(const float2* cand, int total,
+__device__ __forceinline__ void rank_cands(const int2* cand, int total,
                                            int k, int kt, long long base,
-                                           float* ov, int* oi, float* theta,
+                                           float* ov, int* oi, int* theta,
                                            int lane) {
   for (int e = lane; e < total; e += 32) {
-    const float2 me = cand[e];
-    const int mi = __float_as_int(me.y);
+    const int2 me = cand[e];
     int rank = 0;
     for (int f0 = 0; f0 < total; f0 += 16) {
-      float4 w[8];
+      int4 w[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        w[i] = reinterpret_cast<const float4*>(cand + f0)[i];
+        w[i] = reinterpret_cast<const int4*>(cand + f0)[i];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        rank += (f0 + 2 * i < total) &
-                beats(w[i].x, __float_as_int(w[i].y), me.x, mi);
-        rank += (f0 + 2 * i + 1 < total) &
-                beats(w[i].z, __float_as_int(w[i].w), me.x, mi);
+        rank += (f0 + 2 * i < total) & beats(w[i].x, w[i].y, me.x, me.y);
+        rank += (f0 + 2 * i + 1 < total) & beats(w[i].z, w[i].w, me.x, me.y);
       }
     }
     if (rank < k) {
-      ov[rank] = me.x;
-      oi[rank] = static_cast<int>(base + mi);
+      ov[rank] = key_value(me.x);
+      oi[rank] = static_cast<int>(base + me.y);
     }
     if (rank == kt - 1) *theta = next_theta(me.x);
   }
 }
 
 // The K-round fallback's cached best of group G: columns lane + 32 j for
-// j in [G*kGroup, (G+1)*kGroup), read from the score row; taken or absent
+// j in [G*kGroup, (G+1)*kGroup), read from the key row; taken or absent
 // columns are skipped; ties to the lowest j.
 #define PQ_GROUP_BEST(G)                                                  \
   {                                                                       \
-    float v_ = -INFINITY;                                                 \
+    int v_ = INT_MIN;                                                     \
     int j_ = -1;                                                          \
     _Pragma("unroll") for (int jj = 0; jj < kGroup; ++jj) {               \
       const int j = (G) * kGroup + jj;                                    \
       if (j < n_cols && !((taken >> j) & 1ull)) {                         \
-        const float x_ = row[lane + 32 * j];                              \
+        const int x_ = row[lane + 32 * j];                                \
         if (j_ < 0 || x_ > v_) {                                          \
           v_ = x_;                                                        \
           j_ = j;                                                         \
@@ -518,12 +544,12 @@ __device__ __forceinline__ void rank_cands(const float2* cand, int total,
     gj[G] = j_;                                                           \
   }
 
-// The lane's best over its group bests -> (value, column); an exhausted
-// lane offers (-inf, INT_MAX), which loses every tie.
-__device__ __forceinline__ void lane_best(const float (&gv)[kGroups],
+// The lane's best over its group bests -> (key, column); an exhausted
+// lane offers (INT_MIN, INT_MAX), which loses every tie.
+__device__ __forceinline__ void lane_best(const int (&gv)[kGroups],
                                           const int (&gj)[kGroups], int lane,
-                                          float* bv, int* bi) {
-  float v = -INFINITY;
+                                          int* bv, int* bi) {
+  int v = INT_MIN;
   int jb = -1;
 #pragma unroll
   for (int g = 0; g < kGroups; ++g) {
@@ -536,45 +562,46 @@ __device__ __forceinline__ void lane_best(const float (&gv)[kGroups],
   *bi = jb < 0 ? 0x7fffffff : lane + 32 * jb;
 }
 
-// One warp: the exact top-k of one query's scored tile `row` (tile f32 in
+// One warp: the exact top-k of one query's scored tile `row` (tile keys in
 // shared memory), written to ov/oi with global ids base + column, and the
 // next slots' threshold to *theta.  kq in [k, 32]: theta0 = the kq-th
-// largest lane maximum, so at least kq items score >= theta0 and every
-// top-kq item does; those (~1.4 kq on random scores) are buffered in `buf`
-// (the warp's kCandCap float2) and ranked, and *theta is the one ranked
+// largest lane maximum, so at least kq items (every item, when a lane
+// without columns ranks among the first kq) reach theta0 and every top-kq
+// item does; those (~1.4 kq on random scores) are buffered in `buf` (the
+// warp's kCandCap int2) and ranked, and *theta is the one ranked
 // min(total, 2k) - 1.  Otherwise, or when they overflow the buffer, k
 // rounds of a warp arg-max with a cached best per group of 8 columns, and
 // *theta is the k-th best.
-__device__ __forceinline__ void select_row(const float* row, int tile, int k,
+__device__ __forceinline__ void select_row(const int* row, int tile, int k,
                                            int kq, long long base, float* ov,
-                                           int* oi, float2* buf, float* theta,
+                                           int* oi, int2* buf, int* theta,
                                            int lane) {
   const int n_cols = tile > lane ? (tile - lane + 31) >> 5 : 0;
   if (kq <= 32) {
     // The lane's columns are read from the row three times (maximum, count,
     // candidates) rather than held: registers are the scoring warps'.
-    float l0 = -INFINITY, l1 = -INFINITY, l2 = -INFINITY, l3 = -INFINITY;
+    int l0 = INT_MIN, l1 = INT_MIN, l2 = INT_MIN, l3 = INT_MIN;
     int j = 0;
     for (; j + 4 <= n_cols; j += 4) {
-      l0 = fmaxf(l0, row[lane + 32 * j]);
-      l1 = fmaxf(l1, row[lane + 32 * (j + 1)]);
-      l2 = fmaxf(l2, row[lane + 32 * (j + 2)]);
-      l3 = fmaxf(l3, row[lane + 32 * (j + 3)]);
+      l0 = max(l0, row[lane + 32 * j]);
+      l1 = max(l1, row[lane + 32 * (j + 1)]);
+      l2 = max(l2, row[lane + 32 * (j + 2)]);
+      l3 = max(l3, row[lane + 32 * (j + 3)]);
     }
-    for (; j < n_cols; ++j) l0 = fmaxf(l0, row[lane + 32 * j]);
-    const float lm = fmaxf(fmaxf(l0, l1), fmaxf(l2, l3));
+    for (; j < n_cols; ++j) l0 = max(l0, row[lane + 32 * j]);
+    const int lm = max(max(l0, l1), max(l2, l3));
     // theta0: the lane maxima go through the buffer; each lane ranks its
-    // own among them (value desc, lane asc) and the one ranked kq - 1
-    // posts it.
-    float* sm = reinterpret_cast<float*>(buf);
-    int* counter = reinterpret_cast<int*>(sm + 65);
+    // own among them (key desc, lane asc) and the one ranked kq - 1 posts
+    // it.
+    int* sm = reinterpret_cast<int*>(buf);
+    int* counter = sm + 65;
     sm[lane] = lm;
     if (lane == 0) *counter = 0;
     __syncwarp();
     int r = 0;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const float4 w = reinterpret_cast<const float4*>(sm)[i];
+      const int4 w = reinterpret_cast<const int4*>(sm)[i];
       r += (w.x > lm) | ((w.x == lm) & (4 * i < lane));
       r += (w.y > lm) | ((w.y == lm) & (4 * i + 1 < lane));
       r += (w.z > lm) | ((w.z == lm) & (4 * i + 2 < lane));
@@ -582,7 +609,7 @@ __device__ __forceinline__ void select_row(const float* row, int tile, int k,
     }
     if (r == kq - 1) sm[64] = lm;
     __syncwarp();
-    const float theta0 = sm[64];
+    const int theta0 = sm[64];
     int mine = 0;
 #pragma unroll 16
     for (int j = 0; j < n_cols; ++j) mine += row[lane + 32 * j] >= theta0;
@@ -590,11 +617,10 @@ __device__ __forceinline__ void select_row(const float* row, int tile, int k,
     __syncwarp();
     const int total = *counter;
     __syncwarp();             // every lane has read theta0 and the total
-    if (theta0 > -INFINITY && total <= kCandCap) {
+    if (total <= kCandCap) {
       for (int j = 0; j < n_cols; ++j) {
-        const float v = row[lane + 32 * j];
-        if (v >= theta0)
-          buf[pos++] = make_float2(v, __int_as_float(lane + 32 * j));
+        const int v = row[lane + 32 * j];
+        if (v >= theta0) buf[pos++] = make_int2(v, lane + 32 * j);
       }
       __syncwarp();
       rank_cands(buf, total, k, min(total, 2 * k), base, ov, oi, theta,
@@ -604,19 +630,19 @@ __device__ __forceinline__ void select_row(const float* row, int tile, int k,
     }
   }
   unsigned long long taken = 0;
-  float gv[kGroups];
+  int gv[kGroups];
   int gj[kGroups];
   PQ_GROUP_BEST(0) PQ_GROUP_BEST(1) PQ_GROUP_BEST(2) PQ_GROUP_BEST(3)
   PQ_GROUP_BEST(4) PQ_GROUP_BEST(5) PQ_GROUP_BEST(6) PQ_GROUP_BEST(7)
-  float bv;
+  int bv;
   int bi;
   lane_best(gv, gj, lane, &bv, &bi);
   for (int r = 0; r < k; ++r) {
-    float v = bv;
+    int v = bv;
     int i = bi;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float v2 = __shfl_xor_sync(0xffffffffu, v, off);
+      const int v2 = __shfl_xor_sync(0xffffffffu, v, off);
       const int i2 = __shfl_xor_sync(0xffffffffu, i, off);
       if (beats(v2, i2, v, i)) {
         v = v2;
@@ -624,7 +650,7 @@ __device__ __forceinline__ void select_row(const float* row, int tile, int k,
       }
     }
     if (lane == 0) {
-      ov[r] = v;
+      ov[r] = key_value(v);
       oi[r] = static_cast<int>(base + i);
       if (r == k - 1) *theta = next_theta(v);
     }
@@ -710,10 +736,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 pq_topk_fused_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char sh[];
   float* s_sh = reinterpret_cast<float*>(sh);
-  float* sc = reinterpret_cast<float*>(sh + a.plan.sc_off);
+  int* sc = reinterpret_cast<int*>(sh + a.plan.sc_off);   // score keys
   QueryCands* qc = reinterpret_cast<QueryCands*>(sh + a.plan.cand_off);
-  float2* wcand = reinterpret_cast<float2*>(sh + a.plan.cand_off +
-                                            sizeof(QueryCands));
+  int2* wcand = reinterpret_cast<int2*>(sh + a.plan.cand_off +
+                                        sizeof(QueryCands));
   unsigned char* ring = sh + a.plan.ring_off;
   const int qb = a.plan.qb, chunk = a.plan.chunk, depth = a.plan.depth;
   const int tile = a.tile, gx = gridDim.x, k = a.k;
@@ -754,10 +780,9 @@ pq_topk_fused_kernel(const Args a) {
   };
   for (int i = 0; i < depth - 1; ++i) issue(i);
   stage_s(s_sh, a.s, q0, nq, qb, a.m * a.b);
-  // +inf: no prediction (no candidates, so the exact fallback); the first
-  // two slots have none.
+  // The first two slots have no prediction (next_theta).
   for (int e = threadIdx.x; e < 2 * kMaxQB; e += blockDim.x) {
-    (&qc->theta[0][0])[e] = INFINITY;
+    (&qc->theta[0][0])[e] = kNoTheta;
     (&qc->count[0][0])[e] = 0;
   }
   // Select the slot scored into buffer pb: selecting warp q serves query q
@@ -770,7 +795,7 @@ pq_topk_fused_kernel(const Args a) {
       const int count = qc->count[pb][q];
       __syncwarp();           // every lane has read the count
       if (lane == 0) qc->count[pb][q] = 0;
-      float* theta = &qc->theta[pb][q];
+      int* theta = &qc->theta[pb][q];
       if (count >= k && count <= kCandCap) {
         rank_cands(qc->cand[pb][q], count, k, min(count, 2 * k), base,
                    a.out_v + o, a.out_i + o, theta, lane);
@@ -806,21 +831,21 @@ pq_topk_fused_kernel(const Args a) {
         pslot = -1;
       }
       if (static_cast<int>(threadIdx.x) >= n_score) continue;
-      const float4 th = *reinterpret_cast<const float4*>(qc->theta[buf]);
+      const int4 th = *reinterpret_cast<const int4*>(qc->theta[buf]);
       int* cnt = qc->count[buf];
-      float2(*cand)[kCandCap] = qc->cand[buf];
+      int2(*cand)[kCandCap] = qc->cand[buf];
       long long g0;
       const int len = chunk_rows(slot, c, &g0);
       const int col0 = c * chunk;
-      float* out = sc + static_cast<long long>(buf) * qb * tile + col0;
-      // Score column col0 + r for query j; keep it as a candidate when it
-      // reaches the query's predicted threshold.
+      int* out = sc + static_cast<long long>(buf) * qb * tile + col0;
+      // Score column col0 + r for query j as its key; keep it as a
+      // candidate when it reaches the query's predicted threshold.
       auto put = [&](int j, int r, float x) {
-        out[j * tile + r] = x;
-        if (x >= vget(th, j)) {
+        const int key = order_key(x);
+        out[j * tile + r] = key;
+        if (key >= vget(th, j)) {
           const int pos = atomicAdd(cnt + j, 1);
-          if (pos < kCandCap)
-            cand[j][pos] = make_float2(x, __int_as_float(col0 + r));
+          if (pos < kCandCap) cand[j][pos] = make_int2(key, col0 + r);
         }
       };
       score_chunk<CT, M>(

@@ -4,11 +4,17 @@ The CPU path of :mod:`ops` runs these, and ``chip_smoke.py`` holds each
 CUDA kernel against them on the card.  Their float32 add order is the
 kernels' (``tree_sum`` over the per-split gathers), so the comparison is
 at atol=0.
+
+:func:`plant_specials` makes the inputs that hold a selection to
+``lax.top_k``'s total order (signed zeros, NaN of both signs, infinities,
+the padding of a ragged last tile); the CPU tests and the card's checks
+share it.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import pq as pq_lib
@@ -80,3 +86,46 @@ def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
     v = torch.where(dead, NEG_INF, v)
     ids = torch.where(dead, n_items, ids)
     return v, ids
+
+
+def plant_specials(codes: np.ndarray, s: np.ndarray, tile: int,
+                   seed: int = 0):
+    """Codes (N, m) and S (B, m, b >= 6) rewritten so that scores reach
+    every edge of ``lax.top_k``'s order: ordinary items score below -m
+    (S < -1), and of the rest
+
+    * code 0 in every split scores -0.0, codes of only 0 and 1 with a 1
+      score +0.0 (S = -0.0 and +0.0 there; a sum of -0 parts is -0);
+    * split 0's codes 2, 3, 4 and 5 are +inf, +NaN, -NaN and -inf, and
+      split 1's code 5 is +inf, so codes (5, 5, ..) score -inf + inf = NaN
+      (a NaN's sign after an add is the hardware's: x86 keeps the
+      operand's and gives -NaN for inf - inf, the card gives +NaN);
+    * the last tile (ragged when N is not a multiple of ``tile``) holds
+      mostly -NaN items, three -inf and two ordinary ones, so its top-k
+      passes the ``-inf`` padding, which ranks between them.
+
+    Returns new (codes, S) arrays of the same dtypes."""
+    rng = np.random.default_rng(seed)
+    n, m = codes.shape
+    b = s.shape[2]
+    s = -(np.abs(s) + 1.0).astype(np.float32)
+    s[:, :, 0], s[:, :, 1] = -0.0, 0.0
+    s[:, 0, 2:6] = [np.inf, np.nan, -np.nan, -np.inf]
+    if m > 1:
+        s[:, 1, 5] = np.inf
+    out = rng.integers(6, b, (n, m))
+    kind = rng.choice(8, n, p=[0.86, 0.03, 0.03, 0.02, 0.02, 0.01, 0.02,
+                               0.01])
+    out[kind == 1] = 0                                    # -0.0
+    pos = np.flatnonzero(kind == 2)                       # +0.0
+    out[pos] = rng.integers(0, 2, (pos.size, m))
+    out[pos, rng.integers(0, m, pos.size)] = 1
+    for kd, code in ((3, 2), (4, 3), (5, 4), (6, 5)):     # inf, NaN, -NaN,
+        out[kind == kd, 0] = code                         # -inf
+    if m > 1:
+        out[kind == 7, :2] = 5                            # -inf + inf
+    last = (n - 1) // tile * tile
+    out[last:, 0] = 4
+    out[last:last + 3, 0] = 5
+    out[last + 3:last + 5, 0] = 6
+    return out.astype(codes.dtype), s

@@ -84,6 +84,35 @@ def test_padding_reads_row_zero_times_zero():
     assert np.isfinite(got[0]).all() and np.isnan(got[1:]).all()
 
 
+@pytest.mark.parametrize("v,d,n_bags,bag,mode,weighted", tref.ROW0_GRID)
+def test_nan_inf_row0_matches_reference(v, d, n_bags, bag, mode, weighted):
+    """Row 0 holds NaN, +inf and -inf: every bag with a padded slot gets
+    NaN in every column (0 * inf is NaN), as in the reference."""
+    table, idx, w = _inputs(v, d, n_bags, bag, weighted, seed=6)
+    tref.plant_row0(table)
+    idx[0, :2] = -1
+    want = np.asarray(jref.embedding_bag(_j(table), _j(idx), _j(w), mode))
+    got = tops.embedding_bag(_t(table), _t(idx), _t(w), mode=mode).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[0]).all()
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_slotwise_mask_equals_folding_first(weighted):
+    """The plain version (the kernel's steps: the mask applied per slot,
+    no weights read when unweighted) gives the bits of folding the mask
+    into the weights first, the earlier interface's input."""
+    table, idx, w = _inputs(300, 18, 23, 9, weighted, seed=7)
+    tref.plant_row0(table)
+    for mode in tref.MODES:
+        got = tref.bag_reduce(_t(table), _t(idx), _t(w), mode)
+        folded = tref.bag_reduce(_t(table), _t(idx), tref.fold_weights(
+            _t(idx), _t(w)), mode)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      folded.numpy().view(np.uint32))
+
+
 def test_modes_other_than_sum_and_mean_raise():
     table, idx, _ = _inputs(16, 4, 3, 2, False)
     with pytest.raises(ValueError, match="mode"):

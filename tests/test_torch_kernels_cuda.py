@@ -24,6 +24,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _bits_equal(got, want):
+    """Bit for bit, NaN payloads and signed zeros included."""
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
 def _inputs(n, m, b, bq, code_dtype, seed):
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, b, (n, m)).astype(code_dtype)
@@ -252,6 +260,24 @@ def test_embedding_bag_matches_plain_version(cuda_device, v, d, n_bags, bag,
         table, idx, w, mode), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("v,d,n_bags,bag,mode,weighted", eb_ref.LAYOUT_GRID)
+def test_embedding_bag_layouts_match_plain_version(
+        cuda_device, v, d, n_bags, bag, mode, weighted):
+    """The kernel's other layouts (``ref.LAYOUT_GRID``: batches past one
+    wave of warps, 4-float loads, several passes over a wide row): bit
+    for bit against the plain version."""
+    rng = np.random.default_rng(v + d + n_bags)
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-1, v, (n_bags, bag)).astype(
+        np.int32))
+    w = (torch.from_numpy(rng.uniform(0, 1, (n_bags, bag)).astype(
+        np.float32)) if weighted else None)
+    table, idx = table.to(cuda_device), idx.to(cuda_device)
+    w = None if w is None else w.to(cuda_device)
+    _bits_equal((eb_ops.embedding_bag(table, idx, w, mode=mode),),
+                (eb_ref.embedding_bag(table, idx, w, mode),))
+
+
 def test_embedding_bag_all_padding_bag(cuda_device):
     table = torch.randn(32, 8, device=cuda_device)
     idx = torch.full((4, 3), -1, dtype=torch.int32, device=cuda_device)
@@ -285,3 +311,61 @@ def test_embedding_bag_launch_counter_and_refusals(cuda_device):
     with pytest.raises(ValueError, match="empty table"):
         eb_kernel.embedding_bag_cuda(table[:0], idx, w)
     assert eb_kernel.embedding_bag_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("m,bq", [(1, 5), (4, 1), (8, 9), (8, 65)])
+def test_planted_specials_match_plain_versions(cuda_device, m, bq):
+    """Scores at -0.0, +0.0, +-NaN and +-inf (``ref.plant_specials``; at
+    m = 1 a planted -NaN reaches the scores, at m > 1 the card's adds
+    return +NaN): ``pq_scores`` and its top-k, and the fused kernel in all
+    four forms, at k = 1, 16, 100, against the plain versions run on the
+    card, bit for bit."""
+    n, b, tile, bt = 9_001, 64, 2048, 8
+    rng = np.random.default_rng(m + bq)
+    codes, s = tref.plant_specials(
+        rng.integers(0, b, (n, m)).astype(np.uint8),
+        rng.standard_normal((bq, m, b)).astype(np.float32), tile, seed=m)
+    gc = torch.from_numpy(codes).to(cuda_device)
+    gs = torch.from_numpy(s).to(cuda_device)
+    sc = tops.pq_scores(gc, gs)
+    _bits_equal((sc,), (tref.pq_scores(gc, gs),))
+    for k in (1, 16, 100):
+        from repro_torch.core import topk as ttopk
+        _bits_equal(ttopk.topk(sc, k), tref.pq_topk(gc, gs, k))
+    nt = tops.n_tiles(n, tile)
+    live = torch.from_numpy(rng.random(n) > 0.1).to(cuda_device)
+    table = np.full((-(-bq // bt), 4), -1, np.int32)
+    table[-1, :2] = [0, nt - 1]
+    table[0] = [0, 1, 2, nt - 1]
+    forms = [(torch.arange(nt, dtype=torch.int32), 0, None),
+             (torch.tensor([nt - 1, -1, 0, -1], dtype=torch.int32), 0, None),
+             (torch.from_numpy(table), bt, None),
+             (torch.arange(nt, dtype=torch.int32), 0, live)]
+    for idx, batch_tile, lv in forms:
+        gi = idx.to(cuda_device)
+        for k in (1, 16, 100):
+            _bits_equal(
+                tops.pq_topk_slots(gc, gs, k, gi, n_items=n, tile=tile,
+                                   batch_tile=batch_tile, live=lv),
+                tref.pq_topk_slots(gc, gs, k, gi, n_items=n, tile=tile,
+                                   batch_tile=batch_tile, live=lv))
+    _bits_equal(tops.pq_topk(gc, gs, 16), tref.pq_topk(gc, gs, 16))
+
+
+@pytest.mark.parametrize("v,d,n_bags,bag,mode,weighted", eb_ref.ROW0_GRID)
+def test_embedding_bag_nan_inf_row0(cuda_device, v, d, n_bags, bag, mode,
+                                    weighted):
+    """Row 0 holds NaN and +-inf: padded slots read it times 0, so the
+    kernel and its plain version give NaN in the same places, bit for
+    bit."""
+    rng = np.random.default_rng(v + d + bag)
+    table = eb_ref.plant_row0(torch.from_numpy(
+        rng.standard_normal((v, d)).astype(np.float32)))
+    idx = torch.from_numpy(rng.integers(-1, v, (n_bags, bag)).astype(
+        np.int32))
+    w = (torch.from_numpy(rng.uniform(0, 1, (n_bags, bag)).astype(
+        np.float32)) if weighted else None)
+    table, idx = table.to(cuda_device), idx.to(cuda_device)
+    w = None if w is None else w.to(cuda_device)
+    _bits_equal((eb_ops.embedding_bag(table, idx, w, mode=mode),),
+                (eb_ref.embedding_bag(table, idx, w, mode),))

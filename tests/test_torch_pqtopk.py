@@ -373,3 +373,84 @@ def test_pq_topk_tiles_live_matches_reference(grouped):
     with pytest.raises(ValueError, match="live mask shape"):
         tops.pq_topk_tiles(_t(codes), _t(s), k, _t(idx), tile=tile,
                            batch_tile=bt, live=_t(live[:-1]))
+
+
+def _bits(a):
+    return np.asarray(a).view(np.uint32)
+
+
+def _reference_slots(scores, tile_idx, k, n, tile):
+    """The reference fused kernel's per-slot selection (its ``_tile_topk``
+    over each tile, rows past ``n`` masked to ``-inf``, global ids; a
+    ``-1`` slot gives ``(-inf, n)``) on given scores (B, N)."""
+    bq = scores.shape[0]
+    padded = jnp.pad(scores, ((0, 0), (0, (-n) % tile + tile)),
+                     constant_values=0.0)
+    blocks = jkernel.pick_blocks(tile, k)
+    vs, ids = [], []
+    for t in tile_idx.tolist():
+        if t < 0:
+            vs.append(jnp.full((bq, k), -jnp.inf, jnp.float32))
+            ids.append(jnp.full((bq, k), n, jnp.int32))
+            continue
+        col = t * tile + jnp.arange(tile)
+        sc = jnp.where(col[None, :] < n, padded[:, t * tile:(t + 1) * tile],
+                       -jnp.inf)
+        v, c = jkernel._tile_topk(sc, k, blocks)
+        vs.append(v)
+        ids.append(c + t * tile)
+    return (np.asarray(jnp.stack(vs, 1)), np.asarray(jnp.stack(ids, 1)))
+
+
+@pytest.mark.parametrize("code_dtype,n,m,b,tile", [
+    ("uint8", 1000, 4, 64, 128), ("int32", 1500, 1, 16, 256),
+    ("uint16", 2100, 8, 512, 1024)])
+def test_planted_specials_follow_lax_top_k_order(code_dtype, n, m, b, tile):
+    """Scores at -0.0, +0.0, +-NaN and +-inf (``ref.plant_specials``): the
+    port's scores against the reference's jnp oracle (``score_pqtopk``),
+    its per-slot winners (identity list and a ``-1`` sentinel) against the
+    reference kernel's selection (``_tile_topk``) on those scores, its
+    cross-slot merge against the reference's, and its global top-k
+    against ``lax.top_k``: value bits and ids, atol=0.  The last slot's
+    top-k passes the ``-inf`` padding, which ranks below real -inf items
+    and above real -NaN ones.
+
+    The reference's Pallas kernels score with one-hot products, where
+    0 * inf is NaN and a +0.0 product turns a -0.0 sum into +0.0, so on
+    these inputs they depart from their own oracle; the port's kernels
+    gather, as the oracle does, and are held to it."""
+    from repro.core import scoring as jscoring, topk as jtopk
+    codes, s = tref.plant_specials(*_inputs(n, m, b, 3, code_dtype, seed=7),
+                                   tile)
+    jc, js = jnp.asarray(codes), jnp.asarray(s)
+    tc, ts = _t(codes), _t(s)
+    want = jscoring.score_pqtopk(jc, js)
+    for got in (tops.pq_scores(tc, ts), tref.pq_scores(tc, ts)):
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    planted = {int(x) for x in np.unique(_bits(want))}
+    assert {0x80000000, 0, 0x7f800000, 0xff800000} <= planted
+    assert {0x7fc00000, 0xffc00000} <= planted          # +NaN and -NaN
+    nt = tops.n_tiles(n, tile)
+    idx = np.array(list(range(nt)) + [-1], np.int32)
+    for k in (5, 16, 100):
+        rv, ri = (np.asarray(a) for a in jtopk.topk(want, k))
+        for v, i in (tops.pq_topk(tc, ts, k, tile=tile),
+                     tref.pq_topk(tc, ts, k)):
+            np.testing.assert_array_equal(_bits(v.numpy()), _bits(rv))
+            np.testing.assert_array_equal(i.numpy(), ri)
+        sv, si = _reference_slots(want, idx, k, n, tile)
+        v, i = tops.pq_topk_slots(tc, ts, k, _t(idx), n_items=n, tile=tile)
+        np.testing.assert_array_equal(_bits(v.numpy()), _bits(sv))
+        np.testing.assert_array_equal(i.numpy(), si)
+        mv, mi = tops._merge_slot_winners(v, i, k)
+        jv, ji = jops._merge_slot_winners(jnp.asarray(sv), jnp.asarray(si), k)
+        np.testing.assert_array_equal(_bits(mv.numpy()), _bits(jv))
+        np.testing.assert_array_equal(mi.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(mi.numpy(), ri)
+    # The last real slot at k=100: real -inf items, then the padding ids
+    # (>= n, also -inf), then real -NaN items.
+    lv, li = _bits(sv[0, nt - 1]), si[0, nt - 1]
+    pad = np.flatnonzero(li >= n)
+    assert pad.size and (lv[pad] == 0xff800000).all()
+    assert (lv[:pad[0]][-3:] == 0xff800000).all()
+    assert (lv[pad[-1] + 1:] > 0xff800000).all()       # -NaN bits

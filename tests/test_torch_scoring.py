@@ -107,6 +107,116 @@ def test_topk_routes_break_ties_like_lax_top_k(k):
     np.testing.assert_array_equal(i.numpy(), ai)
 
 
+def _bits(a):
+    return np.asarray(a).view(np.uint32)
+
+
+def test_topk_total_order_probes():
+    """+0.0 ranks above -0.0; +NaN first, -NaN last (below -inf)."""
+    nan = np.float32(np.nan)
+    for x, k, ids in (([-0., 0., -0., 0., 1., -1.], 4, [4, 1, 3, 0]),
+                      ([nan, -nan, 1., -np.inf], 4, [0, 2, 3, 1])):
+        x = np.array([x], np.float32)
+        rv, ri = jtopk.topk(jnp.asarray(x), k)
+        v, i = ttopk.topk(_t(x), k)
+        assert np.asarray(ri)[0].tolist() == ids == i[0].tolist()
+        np.testing.assert_array_equal(_bits(v.numpy()), _bits(rv))
+
+
+def _planted_specials(bq=3, n=20_000, seed=11):
+    """Few distinct values, with +-0, +-inf and NaNs of both signs and two
+    payloads each: every top-k crosses ties at every edge of the order.
+    Row 2 is mostly -NaN and -inf, so its top-k reaches the bottom (and
+    the tiled route's -inf padding, which ranks above -NaN)."""
+    rng = np.random.default_rng(seed)
+    special = np.array([0x80000000, 0, 0x7f800000, 0xff800000, 0x7fc00000,
+                        0x7fc00001, 0xffc00000, 0xffc00001, 0x3f800000,
+                        0xbf800000], np.uint32).view(np.float32)
+    x = special[rng.integers(0, special.size, (bq, n))]
+    x[2] = special[rng.choice([3, 6, 7], n, p=[0.002, 0.499, 0.499])]
+    x[2, rng.integers(0, n, 5)] = special[rng.integers(0, 2, 5)]
+    return x
+
+
+@pytest.mark.parametrize("k", [4, 16, 64])
+def test_topk_routes_follow_lax_top_k_total_order(k):
+    x = _planted_specials()
+    rv, ri = jtopk.topk(jnp.asarray(x), k)
+    for fn, args in ((ttopk.topk, ()), (ttopk.tiled_topk, (4096,)),
+                     (ttopk.tiled_topk, (8192,))):
+        v, i = fn(_t(x), k, *args)
+        want_v, want_i = (rv, ri) if fn is ttopk.topk else \
+            jtopk.tiled_topk(jnp.asarray(x), k, *args)
+        np.testing.assert_array_equal(_bits(v.numpy()), _bits(want_v))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(want_i))
+
+
+@pytest.mark.parametrize("k", [4, 16])
+def test_approx_topk_maxblock_matches_reference_on_specials(k):
+    """Blocks whose maximum is -0.0 or +0.0 (with the first maximum a
+    -0.0), +-inf, and one NaN of either sign: the reference's ``max``
+    propagates the NaN and gives +0.0 over mixed zeros, its ``argmax`` the
+    first maximum.  (With several NaNs in one block the reference's NaN
+    bits follow its reduction order, which the port does not model.)"""
+    rng = np.random.default_rng(12)
+    n_blocks, width = 2 * k, 97
+    x = -rng.uniform(1, 2, (2, n_blocks * width)).astype(np.float32)
+    blk = x.reshape(2, n_blocks, width)
+    for j in range(n_blocks):
+        cols = rng.choice(width, 4, replace=False)
+        if j == 5:
+            blk[:, j, cols[0]] = np.nan
+        elif j == 6:
+            blk[:, j, cols] = [np.inf, 1.0, -np.inf, 0.0]
+        elif j % 4 == 0:
+            blk[:, j, cols] = [-0.0, 0.0, -0.0, -np.inf]
+        elif j % 4 == 1:
+            blk[:, j, cols] = [-0.0, -0.0, -np.inf, -0.0]
+        elif j % 4 == 2:
+            blk[:, j, cols[:2]] = [-np.nan, np.inf]
+        else:
+            blk[:, j, :] = -np.inf
+    av, ai = jtopk.approx_topk_maxblock(jnp.asarray(x), k)
+    v, i = ttopk.approx_topk_maxblock(_t(x), k)
+    np.testing.assert_array_equal(_bits(v.numpy()), _bits(av))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ai))
+    top = set(_bits(av).ravel().tolist())
+    assert {0, 0x7fc00000} <= top and (k < 16 or 0x80000000 in top)
+
+
+@pytest.mark.parametrize("method", ["pqtopk", "pqtopk_fused",
+                                    "pqtopk_kernel"])
+def test_top_items_ranks_planted_signed_zeros(method):
+    """A serve method end to end on S planted with -0.0 and +0.0 sub-ids:
+    with one dimension per split, S = phi * sub_emb is -0.0 where phi > 0
+    meets a -0.0 sub-embedding, and items whose codes hit only those
+    entries score -0.0; codes mixing in a +0.0 entry score +0.0.  Every
+    other score is below -m, so the top-k is the zeros, +0.0 first."""
+    from repro.core import retrieval_head as jhead
+    from repro_torch.core import retrieval_head as thead
+    rng = np.random.default_rng(13)
+    n, m, b, k = 3000, 4, 32, 40
+    sub = -rng.uniform(1, 2, (m, b, 1)).astype(np.float32)
+    sub[:, 0], sub[:, 1] = -0.0, 0.0
+    codes = rng.integers(2, b, (n, m)).astype(np.int32)
+    zero = rng.choice(n, 30, replace=False)
+    codes[zero[:12]] = 0
+    codes[zero[12:]] = rng.integers(0, 2, (18, m))
+    codes[zero[12:], 0] = 1
+    phi = rng.uniform(0.5, 1.5, (3, m)).astype(np.float32)
+    jp = {"codes": jnp.asarray(codes), "sub_emb": jnp.asarray(sub)}
+    tp = {"codes": _t(codes), "sub_emb": _t(sub)}
+    rv, ri = (np.asarray(a) for a in jhead.top_items(
+        jp, jnp.asarray(phi), k, method="pqtopk"))
+    v, i = thead.top_items(tp, _t(phi), k, method=method)
+    np.testing.assert_array_equal(_bits(v.numpy()), _bits(rv))
+    np.testing.assert_array_equal(i.numpy(), ri)
+    for q in range(3):                         # 18 +0.0, then 12 -0.0
+        np.testing.assert_array_equal(
+            _bits(rv[q, :30]), [0] * 18 + [0x80000000] * 12)
+        assert (codes[ri[q, 18:30]] == 0).all()
+
+
 @pytest.mark.parametrize("code_dtype", ["uint8", "uint16", "int32"])
 def test_reconstruct_matches(code_dtype):
     b = 512 if code_dtype != "uint8" else 256
