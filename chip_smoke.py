@@ -8,16 +8,23 @@ its plain PyTorch version on the card (the fused kernel with its 1D tile
 list, ``-1`` sentinel slots and 2D (batch tile, slot) table), runs the
 pruned cascade on a full-width tile-coherent catalogue (both bound
 backends, grouping off and on, both seed policies) against the exhaustive
-fused route, then serves the full-width SASRec-RecJPQ model (N=1,271,638
-items, d=512, m=8, b=512, uint16 codes; random weights from a fixed seed)
+fused route.  RQ2 (``repro_torch.examples.billion_item_sim``): the flat
+and hierarchical cascades (super-tiles of 64) on tile-coherent uint8
+catalogues of 2^24 and 10^8 items, both backends, bit-identical to the
+one-shot fused route, with their bound work and the hierarchical split;
+the host two-pass cascade; and a 10^8-item stream in chunks of 2x10^7.
+Then it serves the full-width SASRec-RecJPQ model (N=1,271,638 items,
+d=512, m=8, b=512, uint16 codes; random weights from a fixed seed)
 through ``RetrievalEngine`` with the fused kernel, the scores kernel, the
-plain route and the pruned cascade (batch-any and grouped), checking every
-batch against the plain ``pqtopk`` and fused routes and each path's kernel
-launches.  Then the mutable catalogue: the fused kernel's tombstone-masked
-form (``live``) against its plain version, and a mutable engine at full
-width (capacity 2,097,152 rows) serving 100 batches with 8 catalogue
-mutations and a hot swap between batches, logged to a durable write-ahead
-log that is recovered and checked bit for bit at the end.  Then the
+plain route and the pruned cascade (batch-any, grouped, and with
+super-tiles of 64), checking every batch against the plain ``pqtopk`` and
+fused routes and each path's kernel launches.  Then the mutable
+catalogue: the fused kernel's tombstone-masked form (``live``) against
+its plain version, and mutable engines at full width (capacity 2,097,152
+rows; bitmask over 100 batches, range and bitmask with 16 supers over 20)
+with 8 catalogue mutations and a hot swap between batches, each logged to
+a durable write-ahead log that is recovered and checked bit for bit at
+the end.  Then the
 recsys slice: the embedding-bag kernel against its plain version (phase
 1); the embedding substrate's ``lookup_bag(use_kernel=True)`` on BST's
 full-width item table (4,000,000 x 32; 512 and 262,144 bags, cross-checked
@@ -679,6 +686,352 @@ def skewed_cascade(dev, n_sms, n=1_271_638):
     return forms
 
 
+HIER_SIZES = (1 << 24, 100_000_000)  # RQ2 catalogues: T = 16,384 and 97,657
+HIER_TILE, HIER_FACTOR, HIER_B, HIER_BQ = 1024, 64, 256, 2
+# The reference's own count at 2^24 (README, its CPU run of
+# ``examples/billion_item_sim.py --mode hier``): flat -> hierarchical.
+REFERENCE_HIER_BOUNDS = (16384, 1280)
+STREAM_N, STREAM_CHUNK = 100_000_000, 20_000_000
+
+
+def host_ms(fn, reps=5):
+    """Median host-clock ms of ``fn()`` with a synchronize before and after
+    (for paths that read the host, so their device work cannot be queued
+    ahead)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def read_ms(t):
+    """Median host-clock ms of reading a ready 0-d tensor to the host."""
+    import torch
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.item()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def reset_counts():
+    """Every kernel wrapper's launch counts to 0."""
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.kernels.pqtopk import kernel
+    kernel.pq_scores_cuda.launches = 0
+    kernel.pq_topk_fused_cuda.launches = 0
+    kernel.pq_topk_fused_cuda.launches_2d = 0
+    kernel.pq_topk_fused_cuda.launches_live = 0
+    eb_kernel.embedding_bag_cuda.launches = 0
+
+
+def read_counts():
+    from repro_torch.kernels.pqtopk import kernel
+    return {"pq_topk_fused": kernel.pq_topk_fused_cuda.launches,
+            "pq_topk_fused_2d": kernel.pq_topk_fused_cuda.launches_2d,
+            "pq_topk_fused_live": kernel.pq_topk_fused_cuda.launches_live,
+            "pq_scores": kernel.pq_scores_cuda.launches}
+
+
+def expect_counts(what, got, **want):
+    full = {k: want.get(k, 0) for k in got}
+    print(f"path {what}: launches {got}")
+    if got != full:
+        raise AssertionError(f"{what} launched {got}, expected {full}")
+
+
+def hier_split(codes, s, hier, n_sms):
+    """The hierarchical cascade's pieces on one batch, as ``_hier_tail``
+    runs them (greedy seed, default super ladder, exhaustive child rung):
+    device times of each piece, host-clock times of the two host reads,
+    and the tail's kernel launch against its plain version; beside them
+    the flat route's bounds and seed, the pass-0 pieces stand in for.
+    Returns (split ms, the tail kernel's record)."""
+    import torch
+    from repro_torch.core import pruning
+    from repro_torch.kernels.pqtopk import kernel, ops, ref
+    n, m = codes.shape
+    bq, _, b = s.shape
+    tile, factor, t_total = hier.tile, hier.super_factor, hier.n_tiles
+    be, parts = hier.backend, hier.super_meta_arrays()
+    sup_fn = lambda: pruning.bounds_from_parts(be, parts, s)
+    sup_bounds = sup_fn()
+    deg = pruning.degenerate_from_parts(be, parts, hier.b)
+    seed_fn = lambda: pruning.theta_seed_ingraph(
+        codes, s, sup_bounds, K, tile=factor * tile, degenerate=deg)
+    theta = seed_fn()[0]
+    comp0_fn = lambda: pruning.compact_mask(pruning.survival_mask(
+        sup_bounds, theta))
+    sup_slots, sup_count = comp0_fn()
+    rungs = pruning.normalize_ladder(pruning.default_super_ladder(
+        hier.n_super), hier.n_super, K, factor * tile)
+    r_sup = rungs[pruning._rung(int(sup_count), rungs)]
+
+    def gather_fn():
+        gid = (sup_slots[:r_sup, None].long() * factor
+               + torch.arange(factor, device=s.device)).reshape(-1)
+        safe = gid.clamp(0, t_total - 1)
+        return gid, pruning.bounds_from_parts(
+            be, tuple(p[safe] for p in hier.meta_arrays()), s)
+
+    gid, cb = gather_fn()
+    comp2_fn = lambda: pruning.compact_values(
+        pruning.survival_mask(cb, theta) & (gid >= 0) & (gid < t_total), gid)
+    slots, count = comp2_fn()
+    crungs = pruning.normalize_ladder(None, r_sup * factor, K, tile)
+    table = slots[:crungs[pruning._rung(int(count), crungs)]].contiguous()
+    kern = lambda: kernel.pq_topk_fused_cuda(codes, s, K, table, n_items=n,
+                                             tile=tile)
+    tv, ti = kern()
+    err = compare(f"hier tail kernel N={n}", (tv, ti), ref.pq_topk_slots(
+        codes, s, K, table, n_items=n, tile=tile))
+    flat = pruning.with_super(hier, 0)
+    flat_bounds = pruning.tile_bounds(flat, s)
+    split = {"flat bounds": time_ms(lambda: pruning.tile_bounds(flat, s), 10),
+             "flat seed": time_ms(lambda: pruning.theta_seed_ingraph(
+                 codes, s, flat_bounds, K, tile=tile), 10),
+             "super bounds": time_ms(sup_fn, 10),
+             "seed": time_ms(seed_fn, 10),
+             "pass-0 compaction": time_ms(comp0_fn, 10),
+             "host read 1": read_ms(sup_count),
+             "child-bound gather": time_ms(gather_fn, 10),
+             "stage-2 compaction": time_ms(comp2_fn, 10),
+             "host read 2": read_ms(count),
+             "kernel": time_ms(kern, 20, graph=True),
+             "merge": time_ms(lambda: ops._merge_slot_winners(tv, ti, K),
+                              20)}
+    listed = [t for t in table.tolist() if t >= 0]
+    rows = sum(tile_items(n, tile, listed))
+    nbytes = (rows * m * codes.element_size() + bq * m * b * 4
+              + table.numel() * 4 + bq * table.numel() * K * 8)
+    bnd, by, _ = bound_ms(nbytes, bq * rows * (m - 1), bq * rows * m, n_sms)
+    rec = {"ms": split["kernel"], "max_abs_err": err,
+           "plain_ms": time_ms(lambda: ref.pq_topk_slots(
+               codes, s, K, table, n_items=n, tile=tile), 3),
+           "bound_ms": bnd, "bound_by": by, "slots": table.numel(),
+           "survivors": int(count), "supers": int(sup_count)}
+    return split, rec
+
+
+def hier_phase(dev, n_sms):
+    """RQ2's hierarchical scenario at 2^24 and 10^8 items (m=8, b=256,
+    tile 1024, factor 64, B=2, k=10, uint8 codes, the reference's ``--mode
+    hier`` defaults): per catalogue and bound backend, the flat and the
+    hierarchical cascade bit-identical to each other and to the one-shot
+    fused route, their bound work and host-clock times, the hierarchical
+    route's launches (counts at 0 just before), and its split; at 2^24
+    also on the reference's own S (its ``jax.random`` draw, saved), whose
+    bound count the reference's README gives; then the host two-pass
+    cascade on the 2^24 catalogue.  Returns a summary."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.core import pruning
+    from repro_torch.examples import billion_item_sim as sim
+    from repro_torch.kernels.pqtopk import ops
+    out = {}
+    scores = {"torch S": sim.make_popularity_scores(HIER_BQ, 8, HIER_B,
+                                              seed=0).to(dev),
+              "reference S": torch.from_numpy(np.load(sim.REFERENCE_S)
+                                              ).to(dev)}
+    for n in HIER_SIZES:
+        t0 = time.monotonic()
+        codes = torch.from_numpy(sim.make_clustered_codes(
+            n, 8, HIER_B, HIER_TILE * HIER_FACTOR, seed=0)).to(dev)
+        print(f"hier N={n}: {n * 8 / 1e6:.0f} MB of uint8 codes made and "
+              f"moved in {time.monotonic() - t0:.1f}s")
+        for label, s in scores.items():
+            if label != "torch S" and n != HIER_SIZES[0]:
+                continue
+            ev, ei = ops.pq_topk(codes, s, K)
+            for backend in pruning.BOUND_BACKENDS:
+                what = f"hier N={n} {label} {backend}"
+                flat = pruning.build_pruned_state(codes, HIER_B, HIER_TILE,
+                                                  backend=backend)
+                hier = pruning.with_super(flat, HIER_FACTOR)
+                fv, fi, fst = pruning.cascade_topk_ingraph(
+                    codes, s, K, flat, return_stats=True)
+                reset_counts()
+                hv, hi, hst = pruning.cascade_topk_ingraph(
+                    codes, s, K, hier, return_stats=True)
+                torch.cuda.synchronize()
+                expect_counts(what, read_counts(), pq_topk_fused=1,
+                              pq_scores=1)
+                if not (torch.equal(fv, ev) and torch.equal(fi, ei)
+                        and torch.equal(hv, ev) and torch.equal(hi, ei)):
+                    raise AssertionError(f"{what}: a cascade differs from "
+                                         "the one-shot pq_topk")
+                ref_note = (f" (the reference's CPU run on the reference S: "
+                            f"{REFERENCE_HIER_BOUNDS[0]} -> "
+                            f"{REFERENCE_HIER_BOUNDS[1]}, its README; not "
+                            "this card)" if n == HIER_SIZES[0] else "")
+                t_flat = host_ms(lambda: pruning.cascade_topk_ingraph(
+                    codes, s, K, flat))
+                t_hier = host_ms(lambda: pruning.cascade_topk_ingraph(
+                    codes, s, K, hier))
+                print(f"{what}: T={flat.n_tiles} S={hier.n_super} "
+                      f"bounds_computed {fst['bounds_computed']} -> "
+                      f"{hst['bounds_computed']} ("
+                      f"{fst['bounds_computed'] / hst['bounds_computed']:.2f}"
+                      f"x){ref_note}; n_super_survived="
+                      f"{hst['n_super_survived']} super_rung_hit="
+                      f"{hst['super_rung_hit']} n_survived="
+                      f"{hst['n_survived']} (flat {fst['n_survived']}) "
+                      f"n_scored={hst['n_scored']}; whole cascade flat "
+                      f"{t_flat:.4f}ms hier {t_hier:.4f}ms host clock; both "
+                      "bit-identical to pq_topk")
+                out[(n, label, backend)] = {
+                    "flat_bounds": fst["bounds_computed"],
+                    "hier_bounds": hst["bounds_computed"],
+                    "n_super_survived": hst["n_super_survived"],
+                    "flat_ms": t_flat, "hier_ms": t_hier}
+                if backend == "bitmask" and label == "torch S":
+                    split, rec = hier_split(codes, s, hier, n_sms)
+                    out[(n, "split")] = (split, rec)
+                    print(f"split hier N={n} (bitmask, greedy, B={HIER_BQ}, "
+                          f"{rec['supers']} supers, {rec['survivors']} child "
+                          f"survivors in {rec['slots']} slots): "
+                          + ", ".join(f"{k} {v:.4f}ms"
+                                      for k, v in split.items())
+                          + f"; tail kernel plain {rec['plain_ms']:.4f}ms "
+                          f"bound {rec['bound_ms']:.4f}ms ({rec['bound_by']})")
+                del flat, hier
+            if n == HIER_SIZES[0] and label == "torch S":
+                out["host"] = host_cascade(codes, s, ev, ei)
+        del codes
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def host_cascade(codes, s, ev, ei):
+    """The host two-pass cascade on the clustered catalogue: bit-identical
+    to the in-graph cascade and the one-shot route; its slot list (padded
+    with the past-the-end tile) held against the plain kernel; launches
+    with the counts at 0."""
+    import torch
+    from repro_torch.core import pruning
+    from repro_torch.kernels.pqtopk import kernel, ops, ref
+    n = codes.shape[0]
+    reset_counts()
+    v, i, st = pruning.cascade_topk(codes, s, K, tile=HIER_TILE,
+                                    return_stats=True)
+    torch.cuda.synchronize()
+    expect_counts("host cascade", read_counts(), pq_topk_fused=1,
+                  pq_scores=1)
+    gv, gi = pruning.cascade_topk_ingraph(
+        codes, s, K, pruning.build_pruned_state(codes, HIER_B, HIER_TILE))
+    if not (torch.equal(v, ev) and torch.equal(i, ei)
+            and torch.equal(gv, v) and torch.equal(gi, i)):
+        raise AssertionError("host cascade differs from the in-graph one")
+    meta = pruning.get_tile_metadata(codes, HIER_B, HIER_TILE)
+    mask = pruning.pruned_pass1(codes, meta.present, s, K, tile=HIER_TILE,
+                                n_seed=2)[0]
+    surv = mask.nonzero().flatten().to(torch.int32)
+    idx = torch.full((pruning.slot_bucket(surv.numel(), K, HIER_TILE),),
+                     ops.sentinel_tile(n, HIER_TILE), dtype=torch.int32,
+                     device=codes.device)
+    idx[:surv.numel()] = surv
+    err = compare("host cascade slot list", kernel.pq_topk_fused_cuda(
+        codes, s, K, idx, n_items=n, tile=HIER_TILE), ref.pq_topk_slots(
+        codes, s, K, idx, n_items=n, tile=HIER_TILE))
+    t = host_ms(lambda: pruning.cascade_topk(codes, s, K, tile=HIER_TILE))
+    print(f"host cascade N={n}: n_survived={st['n_survived']} in "
+          f"{st['n_scored']} slots ({st['n_scored'] - st['n_survived']} "
+          f"past-the-end tiles), {t:.4f}ms host clock; bit-identical to the "
+          "in-graph cascade and pq_topk; slot list bit-exact against the "
+          "plain kernel")
+    return {"ms": t, "max_abs_err": err, **{k: st[k] for k in (
+        "n_survived", "n_scored")}}
+
+
+def stream_phase(dev, n_sms):
+    """RQ2's pre-computing scenario at 10^8 items (m=8, b=256, B=1, uint8
+    codes on the host): the chunked stream (one form (a) launch per chunk
+    of 2x10^7 items, host merge) bit-identical to the one-shot fused route
+    over the catalogue on the card; its rate, per-chunk split and the
+    host-to-device copy rates.  Returns a summary."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.examples import billion_item_sim as sim
+    from repro_torch.kernels.pqtopk import kernel, ops, ref
+    n, chunk, m, b = STREAM_N, STREAM_CHUNK, 8, 256
+    codes = np.random.default_rng(0).integers(0, b, (n, m), dtype=np.uint8)
+    s = torch.randn((1, m, b), generator=torch.Generator().manual_seed(0)
+                    ).to(dev)
+    sim.streaming_pqtopk(codes[:chunk], s, K, chunk)        # warm-up
+    reset_counts()
+    v, i, n_chunks = sim.streaming_pqtopk(codes, s, K, chunk)
+    expect_counts(f"stream N={n}", read_counts(), pq_topk_fused=n_chunks)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sim.streaming_pqtopk(codes, s, K, chunk)
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    codes_d = torch.from_numpy(codes).to(dev)
+    ov, oi = ops.pq_topk(codes_d, s, K)
+    if not (np.array_equal(v, ov.cpu().numpy())
+            and np.array_equal(i, oi.cpu().numpy().astype(np.int64))):
+        raise AssertionError("stream differs from the one-shot pq_topk")
+    # Per chunk: the copy (pageable, as the stream does it; and from
+    # pinned memory), the kernel, the host merge.
+    part_h = torch.from_numpy(codes[:chunk])
+    pinned = part_h.pin_memory()
+    copy_ms = time_ms(lambda: part_h.to(dev), 3)
+    pinned_ms = time_ms(lambda: pinned.to(dev, non_blocking=True), 3)
+    part = codes_d[:chunk]
+    tile = 2048
+    idx = torch.arange(ops.n_tiles(chunk, tile), dtype=torch.int32,
+                       device=dev)
+    kern = lambda: kernel.pq_topk_fused_cuda(part, s, K, idx,
+                                             n_items=chunk, tile=tile)
+    tv, ti = kern()
+    err = compare("stream chunk kernel", (tv, ti), ref.pq_topk_slots(
+        part, s, K, idx, n_items=chunk, tile=tile))
+    kern_ms = time_ms(kern, 10, graph=True)
+    cv, ci = ops._merge_slot_winners(tv, ti, K)
+    cv, ci = cv.cpu().numpy(), ci.cpu().numpy()
+    best = (np.full((1, K), -np.inf, np.float32), np.full((1, K), -1,
+                                                          np.int64))
+    t0 = time.perf_counter()
+    for _ in range(20):
+        sim.merge_topk_host(*best, cv, ci, 0, K)
+    merge_ms = (time.perf_counter() - t0) * 1e3 / 20
+    full_idx = torch.arange(ops.n_tiles(n, tile), dtype=torch.int32,
+                            device=dev)
+    one_shot_ms = time_ms(lambda: kernel.pq_topk_fused_cuda(
+        codes_d, s, K, full_idx, n_items=n, tile=tile), 5, graph=True)
+    gbps = chunk * m / copy_ms / 1e6
+    pinned_gbps = chunk * m / pinned_ms / 1e6
+    rate = n / med
+    print(f"stream N={n} chunk={chunk} B=1: {n_chunks} chunks, "
+          f"{med * 1e3:.1f}ms host clock ({rate:.4e} items/s, "
+          f"{rate * m / 1e9:.3f} GB/s of codes = "
+          f"{rate * m / 1e9 / gbps:.3f} of the pageable copy rate "
+          f"{gbps:.3f} GB/s, {rate * m / 1e9 / pinned_gbps:.3f} of the "
+          f"pinned {pinned_gbps:.3f} GB/s); per chunk: copy {copy_ms:.4f}ms "
+          f"(pinned {pinned_ms:.4f}), kernel {kern_ms:.4f}ms (device), host "
+          f"merge {merge_ms:.4f}ms; one-shot kernel over all {n} items "
+          f"{one_shot_ms:.4f}ms (device); bit-identical to the one-shot "
+          "pq_topk, chunk kernel bit-exact against its plain version")
+    del codes, codes_d, part_h, pinned
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": med * 1e3, "items_per_s": rate, "copy_gbps": gbps,
+            "pinned_gbps": pinned_gbps, "kernel_ms": kern_ms,
+            "merge_ms": merge_ms, "one_shot_ms": one_shot_ms,
+            "launches": n_chunks, "max_abs_err": err}
+
+
 def request_stream(cfg, n=N_REQUESTS, seed=0):
     """``n`` user histories of 2..200 random items."""
     import numpy as np
@@ -701,27 +1054,40 @@ def serve(engine, histories):
     return out
 
 
+def super_model(params, cfg):
+    """The model with super-tiles of ``HIER_FACTOR`` tiles: its config and
+    its parameters with the head's pruned state given the super level."""
+    from repro_torch.core import pruning
+    head = params["item_emb"]
+    return ({**params, "item_emb": {**head, "pruned": pruning.with_super(
+        head["pruned"], HIER_FACTOR)}},
+            replace(cfg, pq=replace(cfg.pq, super_factor=HIER_FACTOR)))
+
+
 def serve_paths(params, cfg, dev):
     """Serve the same requests through an engine per path (the fused and
-    scores kernels, the plain route, the pruned cascade batch-any and
-    grouped), each with the launch counts set to 0 just before and read
-    just after; check the counts and that every batch agrees with the
-    plain or fused route.  Returns each path's launch counts."""
+    scores kernels, the plain route, the pruned cascade batch-any, grouped
+    and with super-tiles), each with the launch counts set to 0 just
+    before and read just after; check the counts and that every batch
+    agrees with the plain or fused route.  Returns each path's launch
+    counts and engine stats."""
     import numpy as np
-    from repro_torch.kernels.pqtopk import kernel
     from repro_torch.serving.engine import RetrievalEngine
     grouped_cfg = replace(cfg, pq=replace(cfg.pq, query_grouping=True))
-    # (name, method, config): the pruned engines calibrate their ladders
-    # at build time.
-    paths = [("pqtopk_fused", "pqtopk_fused", cfg),
-             ("pqtopk_kernel", "pqtopk_kernel", cfg),
-             ("pqtopk", "pqtopk", cfg),
-             ("pqtopk_pruned", "pqtopk_pruned", cfg),
-             ("pqtopk_pruned_grouped", "pqtopk_pruned", grouped_cfg)]
-    engines = {name: RetrievalEngine.for_seqrec(params, c, k=K,
+    super_params, super_cfg = super_model(params, cfg)
+    # (name, method, config, parameters): the pruned engines calibrate
+    # their ladders at build time.
+    paths = [("pqtopk_fused", "pqtopk_fused", cfg, params),
+             ("pqtopk_kernel", "pqtopk_kernel", cfg, params),
+             ("pqtopk", "pqtopk", cfg, params),
+             ("pqtopk_pruned", "pqtopk_pruned", cfg, params),
+             ("pqtopk_pruned_grouped", "pqtopk_pruned", grouped_cfg, params),
+             ("pqtopk_pruned_super", "pqtopk_pruned", super_cfg,
+              super_params)]
+    engines = {name: RetrievalEngine.for_seqrec(p, c, k=K,
                                                 max_batch=MAX_BATCH,
                                                 method=method, device=dev)
-               for name, method, c in paths}
+               for name, method, c, p in paths}
     for eng in engines.values():                 # warm both buckets
         serve(eng, request_stream(cfg, MAX_BATCH + 1, seed=1))
         eng.latencies_ms.clear()
@@ -735,22 +1101,15 @@ def serve_paths(params, cfg, dev):
                 "pqtopk": {},
                 "pqtopk_pruned": {"pq_topk_fused": n_batches,
                                   "pq_scores": n_batches},
-                "pqtopk_pruned_grouped": {"pq_topk_fused_2d": n_batches}}
+                "pqtopk_pruned_grouped": {"pq_topk_fused_2d": n_batches},
+                "pqtopk_pruned_super": {"pq_topk_fused": n_batches,
+                                        "pq_scores": n_batches}}
     outs, launches = {}, {}
-    for name, _, _ in paths:
-        kernel.pq_scores_cuda.launches = 0
-        kernel.pq_topk_fused_cuda.launches = 0
-        kernel.pq_topk_fused_cuda.launches_2d = 0
+    for name, _, _, _ in paths:
+        reset_counts()
         outs[name] = serve(engines[name], request_stream(cfg))
-        got = {"pq_topk_fused": kernel.pq_topk_fused_cuda.launches,
-               "pq_topk_fused_2d": kernel.pq_topk_fused_cuda.launches_2d,
-               "pq_scores": kernel.pq_scores_cuda.launches}
-        want = {k: expected[name].get(k, 0) for k in got}
-        print(f"path {name}: launches {got}")
-        if got != want:
-            raise AssertionError(f"path {name} launched {got}, expected "
-                                 f"{want}")
-        launches[name] = got
+        launches[name] = read_counts()
+        expect_counts(name, launches[name], **expected[name])
     stats = {name: eng.stats() for name, eng in engines.items()}
     out_plain = outs["pqtopk"]
     for rid, want in out_plain.items():
@@ -761,7 +1120,8 @@ def serve_paths(params, cfg, dev):
                                                    want.scores)):
                 raise AssertionError(f"{name} request {rid} differs from "
                                      "pqtopk")
-        for name in ("pqtopk_pruned", "pqtopk_pruned_grouped"):
+        for name in ("pqtopk_pruned", "pqtopk_pruned_grouped",
+                     "pqtopk_pruned_super"):
             got, fused = outs[name][rid], outs["pqtopk_fused"][rid]
             if got.shed or got.degraded or not (
                     np.array_equal(got.items, fused.items)
@@ -780,9 +1140,10 @@ def serve_paths(params, cfg, dev):
               f"n_compiles={int(st['n_compiles'])} shed={int(st['shed'])}"
               + extra)
     print(f"engine: {N_REQUESTS} requests in {n_batches} batches per path; "
-          "pqtopk_fused and pqtopk_kernel bit-identical to pqtopk, both "
-          "pqtopk_pruned engines bit-identical to pqtopk_fused; p99 is near "
-          "the slowest batch (a request's latency is its batch's)")
+          "pqtopk_fused and pqtopk_kernel bit-identical to pqtopk, the three "
+          "pqtopk_pruned engines (batch-any, grouped, super-tiles of "
+          f"{HIER_FACTOR}) bit-identical to pqtopk_fused; p99 is near the "
+          "slowest batch (a request's latency is its batch's)")
     return launches, stats
 
 
@@ -928,57 +1289,55 @@ def serve_mutable(engine, mstate, params, cfg, histories, log, seed):
 def mutable_path(params, cfg, dev, n_sms, frozen_stats):
     """The mutable catalogue at full width: a bitmask engine over 100
     batches (oracle checks, launch counts, constant serve variants, the
-    durable log and its recovery), a range engine over fewer batches, the
+    durable log and its recovery), a range engine and a bitmask engine
+    with super-tiles (16 supers of 64 tiles) over fewer batches, the
     masked cascade's time split and the live kernel's record."""
     import numpy as np
     import torch
     from repro_torch.core import pruning, scoring
     from repro_torch.core.mutation import MutableHeadState
+    from repro_torch.core.pruning import ARRAY_FIELDS
     from repro_torch.kernels.pqtopk import kernel, ref
     from repro_torch.models import seqrec
     from repro_torch.serving.catalogue_log import CatalogueLog
     from repro_torch.serving.engine import RetrievalEngine
     out = {}
     with tempfile.TemporaryDirectory() as log_dir:
-        for backend, n_req in (("bitmask", N_REQUESTS), ("range", 1280)):
+        for label, backend, factor, n_req in (
+                ("bitmask", "bitmask", 0, N_REQUESTS),
+                ("range", "range", 0, 1280),
+                ("bitmask+super", "bitmask", HIER_FACTOR, 1280)):
             t0 = time.monotonic()
             mstate = MutableHeadState.build(params["item_emb"]["codes"],
-                                            cfg.pq.b, backend=backend)
+                                            cfg.pq.b, backend=backend,
+                                            super_factor=factor)
+            cfg_l = super_model(params, cfg)[1] if factor else cfg
             eng = RetrievalEngine.for_seqrec_mutable(
-                params, cfg, mstate, k=K, max_batch=MAX_BATCH, device=dev)
+                params, cfg_l, mstate, k=K, max_batch=MAX_BATCH, device=dev)
             serve(eng, request_stream(cfg, MAX_BATCH + 1, seed=1))  # warm-up
             eng.latencies_ms.clear()
             eng.rung_counts.clear()
             n_compiles = eng.stats()["n_compiles"]
-            print(f"mutable {backend}: capacity={mstate.cap} tiles="
-                  f"{mstate.state.n_tiles} ladder={eng.ladder} built in "
-                  f"{time.monotonic() - t0:.1f}s")
-            log = CatalogueLog(os.path.join(log_dir, backend),
+            print(f"mutable {label}: capacity={mstate.cap} tiles="
+                  f"{mstate.state.n_tiles} supers="
+                  f"{mstate.state.n_super if factor else 0} ladder="
+                  f"{eng.ladder} built in {time.monotonic() - t0:.1f}s")
+            log = CatalogueLog(os.path.join(log_dir, label),
                                snapshot_every=300)
             log.snapshot(mstate)
-            kernel.pq_scores_cuda.launches = 0
-            kernel.pq_topk_fused_cuda.launches = 0
-            kernel.pq_topk_fused_cuda.launches_2d = 0
-            kernel.pq_topk_fused_cuda.launches_live = 0
+            reset_counts()
             res, swaps, n_batches = serve_mutable(
                 eng, mstate, params, cfg, request_stream(cfg, n_req, seed=3),
                 log, seed=4)
-            got = {"pq_topk_fused_live": kernel.pq_topk_fused_cuda.launches_live,
-                   "pq_topk_fused": kernel.pq_topk_fused_cuda.launches,
-                   "pq_topk_fused_2d": kernel.pq_topk_fused_cuda.launches_2d,
-                   "pq_scores": kernel.pq_scores_cuda.launches}
-            want = {"pq_topk_fused_live": n_batches, "pq_topk_fused": 0,
-                    "pq_topk_fused_2d": 0, "pq_scores": n_batches}
-            print(f"path pqtopk_pruned_mutable {backend}: launches {got}")
-            if got != want:
-                raise AssertionError(f"mutable {backend} launched {got}, "
-                                     f"expected {want}")
+            got = read_counts()
+            expect_counts(f"pqtopk_pruned_mutable {label}", got,
+                          pq_topk_fused_live=n_batches, pq_scores=n_batches)
             st = eng.stats()
             if st["n_compiles"] != n_compiles or st["n_swaps"] != swaps:
                 raise AssertionError(
-                    f"mutable {backend}: n_compiles {n_compiles} -> "
+                    f"mutable {label}: n_compiles {n_compiles} -> "
                     f"{st['n_compiles']}, n_swaps {st['n_swaps']} != {swaps}")
-            print(f"engine pqtopk_pruned_mutable {backend}: served "
+            print(f"engine pqtopk_pruned_mutable {label}: served "
                   f"{int(st['count'])} in {n_batches} batches mRT="
                   f"{st['mRT_ms']:.3f}ms p99={st['p99_ms']:.3f}ms "
                   f"rung_hit_fraction={st['rung_hit_fraction']:.4f} "
@@ -987,11 +1346,11 @@ def mutable_path(params, cfg, dev, n_sms, frozen_stats):
                   f"stale_tiles={int(mstate.stats()['stale_tiles'])}; no dead "
                   f"id, first {ORACLE_BATCHES} batches bit-identical to the "
                   "masked oracle")
-            out[backend] = (mstate, got)
+            out[label] = (mstate, got)
             # ---- durability: recover the log, bit for bit -----------
             log.close()
             t0 = time.monotonic()
-            rec, lsn = CatalogueLog(os.path.join(log_dir, backend)).recover(
+            rec, lsn = CatalogueLog(os.path.join(log_dir, label)).recover(
                 device=dev, verify=True)
             want_state = mstate.clone()
             want_state.retighten()
@@ -999,14 +1358,17 @@ def mutable_path(params, cfg, dev, n_sms, frozen_stats):
                     and rec.n_rows == mstate.n_rows
                     and torch.equal(rec.codes, mstate.codes)
                     and torch.equal(rec.live, mstate.live)
-                    and all(torch.equal(a, b) for a, b in zip(
-                        rec.state.meta_arrays(),
-                        want_state.state.meta_arrays())))
+                    and rec.super_factor == factor
+                    and all((getattr(rec.state, f) is None
+                             and getattr(want_state.state, f) is None)
+                            or torch.equal(getattr(rec.state, f),
+                                           getattr(want_state.state, f))
+                            for f in ARRAY_FIELDS))
             if not same:
-                raise AssertionError(f"durability {backend}: recovered state "
+                raise AssertionError(f"durability {label}: recovered state "
                                      "differs from the in-memory one")
             ls = log.stats()
-            print(f"durability {backend}: lsn={lsn} snapshots="
+            print(f"durability {label}: lsn={lsn} snapshots="
                   f"{int(ls['n_snapshots'])} latest_snapshot_lsn="
                   f"{int(ls['latest_snapshot_lsn'])} log_bytes="
                   f"{int(ls['log_bytes'])}; recovered (verify) bit-identical "
@@ -1029,13 +1391,15 @@ def mutable_path(params, cfg, dev, n_sms, frozen_stats):
         phi = seqrec.sequence_embedding({**params, "item_emb": head}, seqs,
                                          cfg)
         s = scoring.subid_scores(head["sub_emb"], phi).contiguous()
-        for backend in ("bitmask", "range"):
-            st = out[backend][0].state
+        for label, (ms, _) in out.items():
             _, _, cs = pruning.cascade_topk_ingraph(
-                out[backend][0].codes, s, K_KERNEL, st,
-                live=out[backend][0].live, return_stats=True)
-            print(f"mutable cascade {backend}: n_tiles={cs['n_tiles']} "
-                  f"n_survived={cs['n_survived']} n_scored={cs['n_scored']}")
+                ms.codes, s, K_KERNEL, ms.state, live=ms.live,
+                return_stats=True)
+            print(f"mutable cascade {label}: n_tiles={cs['n_tiles']} "
+                  f"n_survived={cs['n_survived']} n_scored={cs['n_scored']} "
+                  f"n_super={cs['n_super']} n_super_survived="
+                  f"{cs['n_super_survived']} bounds_computed="
+                  f"{cs['bounds_computed']}")
         state = mstate.state
         tile = state.tile
         bounds = pruning.tile_bounds(state, s)
@@ -1524,6 +1888,12 @@ def main(argv=None) -> int:
     max_err["pq_topk_fused_live"] = max(max_err["pq_topk_fused_live"],
                                         check_live_kernel(dev))
     forms = skewed_cascade(dev, n_sms)
+    hier = hier_phase(dev, n_sms)
+    stream = stream_phase(dev, n_sms)
+    max_err["pq_topk_fused"] = max(
+        [max_err["pq_topk_fused"], hier["host"]["max_abs_err"],
+         stream["max_abs_err"]] + [hier[(n, "split")][1]["max_abs_err"]
+                                   for n in HIER_SIZES])
 
     # ---- full-width model, served through the engine ----------------
     cfg = get_config("sasrec-recjpq").model
@@ -1583,6 +1953,37 @@ def main(argv=None) -> int:
         idx = torch.arange(ops.n_tiles(n, tile), dtype=torch.int32,
                            device=dev)
         code_b = codes.element_size()
+        # The same batch through the cascade with super-tiles: random codes
+        # put every sub-id in every tile, so every super survives and the
+        # bound work grows by the super count.
+        from repro_torch.core import pruning
+        sup_state = super_model(params, cfg)[0]["item_emb"]["pruned"]
+        _, _, fst = pruning.cascade_topk_ingraph(codes, s, K, head["pruned"],
+                                                 return_stats=True)
+        hv, hi, hst = pruning.cascade_topk_ingraph(codes, s, K, sup_state,
+                                                   return_stats=True)
+        if not (torch.equal(hv, ev) and torch.equal(hi, ei)):
+            raise AssertionError("super-tile cascade differs from pqtopk")
+        flat_b = pruning.tile_bounds(head["pruned"], s)
+        sup_b = pruning.bounds_from_parts("bitmask",
+                                          sup_state.super_meta_arrays(), s)
+        seeds = {"flat seed": time_ms(lambda: pruning.theta_seed_ingraph(
+                     codes, s, flat_b, K, tile=sup_state.tile), 5),
+                 "super seed": time_ms(lambda: pruning.theta_seed_ingraph(
+                     codes, s, sup_b, K, tile=sup_state.tile * HIER_FACTOR),
+                     5),
+                 "flat cascade": host_ms(lambda: pruning.cascade_topk_ingraph(
+                     codes, s, K, head["pruned"])),
+                 "super cascade": host_ms(lambda: pruning.cascade_topk_ingraph(
+                     codes, s, K, sup_state))}
+        print(f"model cascade with super-tiles of {HIER_FACTOR}: T="
+              f"{sup_state.n_tiles} S={sup_state.n_super} n_super_survived="
+              f"{hst['n_super_survived']} bounds_computed "
+              f"{fst['bounds_computed']} -> {hst['bounds_computed']}, "
+              f"n_survived {fst['n_survived']} -> {hst['n_survived']}; "
+              + ", ".join(f"{k} {v:.4f}ms" for k, v in seeds.items())
+              + " (seeds device time, cascades host clock); bit-identical "
+              "to pqtopk")
         recs = []
         scores_ms = compare_timed(
             "pq_scores", lambda: kernel.pq_scores_cuda(codes, s),
@@ -1655,6 +2056,13 @@ def main(argv=None) -> int:
                            + [b["max_abs_err"] for b in bags.values()]),
         **{k: bulk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}})
+    for n in HIER_SIZES:
+        rec = hier[(n, "split")][1]
+        print(f"kernel pq_topk_fused (b) hier tail N={n}: {rec['ms']:.4f}ms "
+              f"plain {rec['plain_ms']:.4f}ms bound {rec['bound_ms']:.4f}ms "
+              f"({rec['bound_by']}) launches 1 per cascade on {card}")
+    print(f"kernel pq_topk_fused (a) stream chunk: {stream['kernel_ms']:.4f}"
+          f"ms launches {stream['launches']} on {card}")
     for r in recs:
         print(f"kernel {r['name']}: {r['ms']:.4f}ms plain {r['plain_ms']:.4f}"
               f"ms bound {r['bound_ms']:.4f}ms ({r['bound_by']}) library "

@@ -16,6 +16,13 @@ full retighten is bit-identical to
 :func:`repro_torch.core.pruning.build_pruned_state_masked` over the current
 codes and live mask (:meth:`~MutableHeadState.rebuild_oracle`).
 
+With a super level (``super_factor > 1``) every mutation loosens the
+row's super as it loosens its tile (OR in the row, widen the hull), and a
+tile that an insert makes tighter (the first live row of an empty range
+tile) has its super recomputed from the children.  Retighten recomputes
+each touched super once, after its children, so a full retighten equals
+the oracle at both levels.
+
 **In place, on one stream.**  JAX arrays never change, so the reference's
 mutations return new arrays and its ``clone()`` shares them.  PyTorch
 tensors are mutable: here every mutation writes the manager's tensors in
@@ -28,7 +35,7 @@ every tensor: two managers never share one.
 
 ``uint16`` codes (b=512) have few PyTorch operations, so rows are written
 through the codes' ``int16`` view, as :mod:`repro_torch.core.pq` reads
-them.  Hierarchical super-tiles are a later slice.
+them.
 """
 from __future__ import annotations
 
@@ -41,12 +48,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import pq as pq_lib
 from repro_torch.core.pruning import (ARRAY_FIELDS, BOUND_BACKENDS,
-                                      DEFAULT_PRUNE_TILE, _SUPER_SLICE,
-                                      PrunedHeadState,
+                                      DEFAULT_PRUNE_TILE, PrunedHeadState,
                                       _build_code_ranges_masked,
-                                      _build_present_masked,
+                                      _build_present_masked, _or_reduce_axis,
                                       build_pruned_state_masked,
-                                      pack_presence)
+                                      pack_presence, with_super)
 
 _NUMPY_CODE_TYPES = {torch.int8: np.int8, torch.uint8: np.uint8,
                      torch.int16: np.int16, torch.uint16: np.uint16,
@@ -107,23 +113,26 @@ class MutableHeadState:
         tile, a tile multiple, so every tile is full), mark rows [0, n)
         live and build exact live-masked tile metadata, on ``device``
         (default: the codes' device).  ``capacity`` gives extra insert
-        headroom; a later capacity change is a shape change."""
+        headroom; a later capacity change is a shape change.
+        ``super_factor > 1`` adds the super level, and the capacity is
+        then a ``tile * super_factor`` multiple, so every super has
+        ``super_factor`` children."""
         if backend not in BOUND_BACKENDS:
             raise ValueError(f"unknown bound backend {backend!r}")
-        if super_factor > 1:
-            raise NotImplementedError(_SUPER_SLICE)
         dev = codes.device if device is None else resolve_device(device)
         n, m = codes.shape
         tile = max(1, min(int(tile), n))
+        super_factor = 0 if super_factor <= 1 else int(super_factor)
+        grain = tile * super_factor if super_factor else tile
         cap = next_pow2(max(n, 1)) if capacity is None else int(capacity)
         cap = max(cap, tile, n)
-        cap = -(-cap // tile) * tile
+        cap = -(-cap // grain) * grain
         codes_cap = torch.zeros((cap, m), dtype=codes.dtype, device=dev)
         _storage(codes_cap)[:n] = _storage(codes).to(dev)
         live = torch.zeros((cap,), dtype=torch.bool, device=dev)
         live[:n] = True
-        state = build_pruned_state_masked(codes_cap, live, b, tile,
-                                          backend=backend)
+        state = with_super(build_pruned_state_masked(
+            codes_cap, live, b, tile, backend=backend), super_factor)
         return cls(codes_cap, live, state,
                    staleness=np.zeros(state.n_tiles, np.int64), free=[],
                    n_rows=n)
@@ -179,9 +188,10 @@ class MutableHeadState:
 
     def _absorb(self, slot: int, row: torch.Tensor) -> None:
         """OR/widen tile metadata so it covers ``row`` at ``slot``: the
-        exact-on-insert half of every mutation."""
+        exact-on-insert half of every mutation, at both levels."""
         t = slot // self.tile
         st = self.state
+        g = t // st.super_factor if st.has_super else None
         sub = pq_lib.widen(row.view(self.codes.dtype))                # (m,)
         if self.backend == "range":
             c = sub.to(torch.int16)
@@ -190,18 +200,40 @@ class MutableHeadState:
                 # The tile's only live row: SET its range.  The masked build
                 # clamps an empty tile to [0, 0], and widening could never
                 # lift that phantom lo=0 (the tile would stay looser than
-                # the rebuild oracle).  Exact now, so its debt is gone.
+                # the rebuild oracle).  Exact now, so its debt is gone; the
+                # child got tighter, which widening cannot express, so its
+                # super is recomputed from the children.
                 st.code_lo[t] = c
                 st.code_hi[t] = c
                 self.staleness[t] = 0
+                if g is not None:
+                    self._recompute_super(g)
             else:
                 st.code_lo[t] = torch.minimum(st.code_lo[t], c)
                 st.code_hi[t] = torch.maximum(st.code_hi[t], c)
+                if g is not None:
+                    st.super_lo[g] = torch.minimum(st.super_lo[g], c)
+                    st.super_hi[g] = torch.maximum(st.super_hi[g], c)
         else:
             present = torch.zeros((1, self.m, self.b), dtype=torch.bool,
                                   device=self.codes.device)
             present[0, torch.arange(self.m, device=sub.device), sub] = True
-            st.packed[t] |= pack_presence(present)[0]
+            word = pack_presence(present)[0]
+            st.packed[t] |= word
+            if g is not None:
+                st.super_packed[g] |= word
+
+    def _recompute_super(self, g: int) -> None:
+        """Super ``g``'s metadata from its children as they are now (OR of
+        the words, hull of the ranges): dominating whether or not the
+        children are stale, exact once they are."""
+        st = self.state
+        kids = slice(g * st.super_factor, (g + 1) * st.super_factor)
+        if st.backend == "range":
+            st.super_lo[g] = st.code_lo[kids].amin(dim=0)
+            st.super_hi[g] = st.code_hi[kids].amax(dim=0)
+        else:
+            st.super_packed[g] = _or_reduce_axis(st.packed[kids], 0)
 
     def insert(self, row) -> int:
         """Add an item; returns its slot (= item id).  Reuses the oldest
@@ -272,14 +304,13 @@ class MutableHeadState:
         and ``live`` (numpy or tensors), the freelist IN ORDER and the slot
         high-water mark.  The metadata is rebuilt exactly from codes + live,
         so the restored state is :meth:`rebuild_oracle` of the snapshot and
-        staleness restarts at zero."""
-        if super_factor > 1:
-            raise NotImplementedError(_SUPER_SLICE)
+        staleness restarts at zero; ``super_factor > 1`` re-attaches the
+        super level."""
         dev = resolve_device(device)
         codes = torch.as_tensor(codes).to(dev)
         live = torch.as_tensor(live).to(device=dev, dtype=torch.bool)
-        state = build_pruned_state_masked(codes, live, b, tile,
-                                          backend=backend)
+        state = with_super(build_pruned_state_masked(
+            codes, live, b, tile, backend=backend), super_factor)
         return cls(codes, live, state,
                    staleness=np.zeros(state.n_tiles, np.int64),
                    free=[int(s) for s in free], n_rows=int(n_rows))
@@ -291,7 +322,8 @@ class MutableHeadState:
         """Exactly rebuild the stalest tiles' metadata (off the serve path).
         Default: every tile with staleness > 0, stalest first;
         ``max_tiles`` bounds the work per call.  Returns the tile ids
-        re-tightened.  After all stale tiles the state is bit-identical to
+        re-tightened.  Each touched super is recomputed once, after its
+        children.  After all stale tiles the state is bit-identical to
         :meth:`rebuild_oracle`."""
         if tile_ids is None:
             order = np.argsort(-self.staleness, kind="stable")
@@ -311,13 +343,18 @@ class MutableHeadState:
                 st.packed[t] = pack_presence(
                     _build_present_masked(rows, lv, st.b, tile))[0]
             self.staleness[t] = 0
+        if st.has_super:
+            for g in sorted({t // st.super_factor for t in tile_ids}):
+                self._recompute_super(g)
         return tile_ids
 
     def rebuild_oracle(self) -> PrunedHeadState:
-        """From-scratch exact state over the current codes and live mask:
-        the bit-parity reference for retighten and the churn tests."""
-        return build_pruned_state_masked(self.codes, self.live, self.b,
-                                         self.tile, backend=self.backend)
+        """From-scratch exact state over the current codes and live mask,
+        with the same super level: the bit-parity reference for retighten
+        and the churn tests."""
+        return with_super(build_pruned_state_masked(
+            self.codes, self.live, self.b, self.tile, backend=self.backend),
+            self.super_factor)
 
     # -- serving snapshot -------------------------------------------------
 

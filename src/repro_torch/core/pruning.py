@@ -1,7 +1,7 @@
 """Per-tile score upper bounds and the pruned cascade (``pqtopk_pruned``).
 
-The port of the reference's ``core/pruning.py``, flat layout only.  For
-any item i in tile t,
+The port of the reference's ``core/pruning.py`` (one device: the sharded
+layout is a later slice and raises).  For any item i in tile t,
 
     r_i = sum_k S[k, G[i,k]]  <=  sum_k max_{j in C(t,k)} S[k, j] =: ub_t
 
@@ -19,16 +19,32 @@ on a device value without waiting for it, so the cascade reads the count
 on the host once per batch and launches the kernel on the first rung that
 holds it.  No result differs.
 
+**Hierarchical super-tiles** (:func:`with_super`, ``super_factor > 1``):
+groups of ``factor`` consecutive tiles carry the OR of their presence
+words, or the hull of their code ranges.  A super's bound dominates each
+child's, so pass 0 prunes supers against theta (seeded from the super
+bounds) and only the surviving supers' children have a bound gathered:
+O(S + survivors * factor) bound work instead of O(T), and the same
+surviving tiles as the flat rule at the same theta.  The reference picks
+both rungs, super and child, in nested ``lax.cond``\\ s; here the super
+survivor count is read on the host, the tail runs on that rung's prefix,
+and then the child count is read: two host reads per batch where the flat
+route has one.
+
+:func:`cascade_topk` is the reference's host two-pass cascade (dense
+presence metadata cached per catalogue, survivors compacted on the host
+into a slot list padded with the past-the-end tile): the route the
+single-dispatch cascade is held against; serving does not use it.
+
 Presence words are ``int32`` holding the reference's ``uint32`` bit
 patterns (PyTorch gives ``uint32`` few operations).  Every top-k here is
 :func:`repro_torch.core.topk.topk` (ties to the lowest index, as
 ``lax.top_k``).  The mutable catalogue's ``live`` tombstone mask is
 threaded through the masked builds, theta seeding and the fused kernel.
-Super-tiles and the sharded layout are later slices: they raise
-``NotImplementedError``.
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
@@ -50,6 +66,8 @@ DEFAULT_SEED_TILES = 2
 DEFAULT_SEED_MAX_TILES = 16
 DEFAULT_SEED_STAB_TOL = 0.05
 DEFAULT_N_GROUPS = 8
+#: Child tiles per super-tile of the hierarchical cascade.
+DEFAULT_SUPER_FACTOR = 64
 
 #: Bound backends: "bitmask" (exact per-tile code-presence sets) and
 #: "range" (per-tile [code_lo, code_hi] int16 hulls, looser, 1/8 the bytes
@@ -70,8 +88,6 @@ _WORD = 32   # presence bits per packed word
 ARRAY_FIELDS = ("packed", "code_lo", "code_hi", "super_packed", "super_lo",
                 "super_hi")
 
-_SUPER_SLICE = ("hierarchical super-tiles (super_factor > 1) are a later "
-                "port slice (ROADMAP queue A 1) and not ported yet")
 _SHARD_SLICE = ("the sharded pruned layout (shards > 1) is a later port "
                 "slice and not ported yet")
 
@@ -158,15 +174,54 @@ def _build_code_ranges_masked(codes: torch.Tensor,
 
 
 @dataclass(frozen=True)
+class TileMeta:
+    """Dense presence metadata of the host two-pass cascade:
+    ``present[t, k, j]`` iff sub-id j occurs in split k of tile t (the last
+    tile may be partial).  n_tiles * m * b bools, 8x the presence words of
+    :class:`PrunedHeadState`."""
+
+    tile: int
+    n_tiles: int
+    n_items: int
+    present: torch.Tensor   # (n_tiles, m, b) bool
+
+
+def build_tile_metadata(codes: torch.Tensor, b: int, tile: int) -> TileMeta:
+    """One O(N*m) scatter over the codes, on their device."""
+    n = codes.shape[0]
+    return TileMeta(tile=tile, n_tiles=-(-n // tile), n_items=n,
+                    present=_build_present_masked(codes, None, b, tile))
+
+
+# Per-catalogue cache keyed by the identity of the codes tensor; a
+# finalizer evicts an entry when its tensor is collected, so a reused id()
+# never serves stale metadata.
+_META_CACHE: dict = {}
+
+
+def get_tile_metadata(codes: torch.Tensor, b: int, tile: int) -> TileMeta:
+    """:func:`build_tile_metadata`, cached per codes tensor."""
+    key = (id(codes), b, tile)
+    meta = _META_CACHE.get(key)
+    if meta is None:
+        meta = build_tile_metadata(codes, b, tile)
+        weakref.finalize(codes, _META_CACHE.pop, key, None)
+        _META_CACHE[key] = meta
+    return meta
+
+
+@dataclass(frozen=True)
 class PrunedHeadState:
     """Query-independent pruning metadata, carried in the item head's
     parameter dict as ``"pruned"`` (the reference's fields, unchanged).
 
     ``"bitmask"``: ``packed`` (T, m, ceil(b/32)) int32 presence words;
-    ``"range"``: ``code_lo``/``code_hi`` (T, m) int16.  The port builds and
-    serves the flat layout only (``shards == 1``, ``super_factor == 0``);
-    the shard and super-tile fields are kept so a reference state converts
-    field for field (:mod:`repro_torch.interop`)."""
+    ``"range"``: ``code_lo``/``code_hi`` (T, m) int16.  With a super level
+    (``super_factor > 1``, :func:`with_super`) ``super_packed`` (S, m,
+    ceil(b/32)) or ``super_lo``/``super_hi`` (S, m) hold each group of
+    ``super_factor`` tiles' OR or hull.  The port serves one device
+    (``shards == 1``); the shard fields are kept so a reference state
+    converts field for field (:mod:`repro_torch.interop`)."""
 
     packed: Optional[torch.Tensor]
     tile: int
@@ -188,6 +243,12 @@ class PrunedHeadState:
             return (self.code_lo, self.code_hi)
         return (self.packed,)
 
+    def super_meta_arrays(self) -> Tuple[torch.Tensor, ...]:
+        """The backend's super-tile arrays, leading dim = supers."""
+        if self.backend == "range":
+            return (self.super_lo, self.super_hi)
+        return (self.super_packed,)
+
     @property
     def has_super(self) -> bool:
         return self.super_factor > 1
@@ -195,6 +256,18 @@ class PrunedHeadState:
     @property
     def n_tiles(self) -> int:
         return self.meta_arrays()[0].shape[0]
+
+    @property
+    def tiles_per_shard(self) -> int:
+        return self.n_tiles // self.shards
+
+    @property
+    def n_super(self) -> int:
+        return self.super_meta_arrays()[0].shape[0]
+
+    @property
+    def supers_per_shard(self) -> int:
+        return self.n_super // self.shards
 
     @property
     def nbytes(self) -> int:
@@ -221,13 +294,13 @@ def build_pruned_state(codes: torch.Tensor, b: int,
                        tile: int = DEFAULT_PRUNE_TILE, *,
                        shards: int = 1, backend: str = "bitmask",
                        super_factor: int = 0) -> PrunedHeadState:
-    """Head-build-time constructor of the flat state, on ``codes``'s
-    device."""
+    """Head-build-time constructor, on ``codes``'s device; ``super_factor >
+    1`` adds the super level (:func:`with_super`)."""
     if shards > 1:
         raise NotImplementedError(_SHARD_SLICE)
-    if super_factor > 1:
-        raise NotImplementedError(_SUPER_SLICE)
-    return build_pruned_state_masked(codes, None, b, tile, backend=backend)
+    return with_super(build_pruned_state_masked(codes, None, b, tile,
+                                                backend=backend),
+                      super_factor)
 
 
 def build_pruned_state_masked(codes: torch.Tensor,
@@ -255,6 +328,58 @@ def build_pruned_state_masked(codes: torch.Tensor,
     return PrunedHeadState(
         pack_presence(_build_present_masked(codes, live, b, t)),
         tile=t, n_items=n, b=b, shards=1, n_local=n)
+
+
+def _or_reduce_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Bitwise OR along ``axis`` by tree halving (log2(n) ORs).  OR on the
+    int32 words gives the reference's uint32 bits."""
+    while x.shape[axis] > 1:
+        n = x.shape[axis]
+        half = n // 2
+        merged = x.narrow(axis, 0, half) | x.narrow(axis, half, half)
+        if n % 2:
+            merged = torch.cat([merged, x.narrow(axis, 2 * half, 1)],
+                               dim=axis)
+        x = merged
+    return x.squeeze(axis)
+
+
+def with_super(state: PrunedHeadState,
+               factor: int = DEFAULT_SUPER_FACTOR) -> PrunedHeadState:
+    """Attach a super-tile level: each group of ``factor`` consecutive
+    tiles (per shard, so no super straddles a shard) gets the OR of its
+    presence words or the [min lo, max hi] hull of its ranges, so its bound
+    dominates every child's.  The last group is padded with children that
+    change nothing (zero words; lo = 32767, hi = 0).  ``factor <= 1``
+    strips the level.  No pass over the codes: it composes with every
+    builder, the mutable catalogue's included."""
+    factor = int(factor)
+    if factor <= 1:
+        return replace(state, super_factor=0, super_packed=None,
+                       super_lo=None, super_hi=None)
+    t_local = state.tiles_per_shard
+    s_local = -(-t_local // factor)
+    pad = s_local * factor - t_local
+    if state.backend == "range":
+        m = state.code_lo.shape[1]
+        lo = state.code_lo.reshape(state.shards, t_local, m)
+        hi = state.code_hi.reshape(state.shards, t_local, m)
+        if pad:
+            lo = F.pad(lo, (0, 0, 0, pad), value=2 ** 15 - 1)
+            hi = F.pad(hi, (0, 0, 0, pad))
+        slo = lo.reshape(state.shards, s_local, factor, m).amin(dim=2)
+        shi = hi.reshape(state.shards, s_local, factor, m).amax(dim=2)
+        return replace(state, super_factor=factor, super_packed=None,
+                       super_lo=slo.reshape(-1, m).to(torch.int16),
+                       super_hi=shi.reshape(-1, m).to(torch.int16))
+    _, m, w = state.packed.shape
+    pk = state.packed.reshape(state.shards, t_local, m, w)
+    if pad:
+        pk = F.pad(pk, (0, 0, 0, 0, 0, pad))
+    sup = _or_reduce_axis(pk.reshape(state.shards, s_local, factor, m, w),
+                          axis=2)
+    return replace(state, super_factor=factor, super_lo=None, super_hi=None,
+                   super_packed=sup.reshape(-1, m, w))
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +454,28 @@ def bounds_from_parts(backend: str, parts: Tuple[torch.Tensor, ...],
     if backend == "range":
         return tile_upper_bounds_range(*parts, s)
     return tile_upper_bounds_packed(*parts, s)
+
+
+def theta_from_seed(codes: torch.Tensor, s: torch.Tensor,
+                    bounds: torch.Tensor, k: int, *, tile: int, n_seed: int,
+                    n_items: Optional[int] = None,
+                    id_offset: int = 0) -> torch.Tensor:
+    """The host cascade's greedy seed: score the ``n_seed`` tiles with the
+    largest batch-max bounds exactly (:func:`ops.pq_scores`, the CUDA
+    kernel on the card) -> theta (B,), each query's k-th best seeded score.
+    Rows whose global id ``id_offset + row`` reaches ``n_items`` (default
+    N) are masked out."""
+    n = codes.shape[0]
+    n_tiles = -(-n // tile)
+    n_seed = min(max(n_seed, -(-k // tile)), n_tiles)
+    seed = topk_lib.topk(bounds.amax(dim=0), n_seed)[1].long()
+    gid, safe = _tile_rows(seed, tile, n)
+    sc = kernel_ops.pq_scores(
+        pq_lib.take_rows(codes, safe.reshape(-1)).contiguous(), s)
+    limit = n if n_items is None else n_items
+    valid = ((id_offset + gid < limit) & (gid < n)).reshape(-1)
+    sc = torch.where(valid[None, :], sc, NEG_INF)
+    return topk_lib.topk(sc, min(k, n_seed * tile))[0][:, -1]
 
 
 def seed_schedule(policy: str, n_seed: int, n_seed_max: int, k: int,
@@ -530,6 +677,48 @@ def compact_mask(mask: torch.Tensor, n_slots: Optional[int] = None,
     return slots[..., :n_slots], mask.sum(dim=-1, dtype=torch.int32)
 
 
+def compact_values(mask: torch.Tensor, values: torch.Tensor,
+                   n_slots: Optional[int] = None,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`compact_mask` scattering ``values`` (T,) instead of positions:
+    the hierarchical cascade's stage-2 compaction, whose mask axis
+    enumerates (surviving super, child) pairs and whose values are the
+    children's global tile ids.  The slots follow the mask axis, so they
+    ascend when the values do over the survivors (the kernel's tie-break
+    needs ascending slots)."""
+    t = mask.shape[-1]
+    n_slots = t if n_slots is None else int(n_slots)
+    pos = torch.cumsum(mask.long(), dim=-1) - 1
+    dest = torch.where(mask, pos, n_slots).clamp(max=n_slots)
+    slots = torch.full((n_slots + 1,), -1, dtype=torch.int32,
+                       device=mask.device)
+    slots.scatter_(-1, dest, values.to(torch.int32))
+    return slots[:n_slots], mask.sum(dtype=torch.int32)
+
+
+def default_super_ladder(n_super: int) -> Tuple[int, ...]:
+    """Pass-0 rung budgets (surviving supers the tail is sized for): the
+    powers of two at or above S/16 and S/4; :func:`normalize_ladder` adds
+    the exhaustive rung."""
+    rungs = []
+    for frac in (16, 4):
+        x = max(1, n_super // frac)
+        rungs.append(1 << (x - 1).bit_length())
+    return tuple(dict.fromkeys(rungs))
+
+
+def pruned_pass1(codes: torch.Tensor, present: torch.Tensor,
+                 s: torch.Tensor, k: int, *, tile: int, n_seed: int,
+                 n_items: Optional[int] = None, id_offset: int = 0):
+    """The host cascade's first pass: dense-presence bounds, the greedy
+    seed's theta and the survival mask -> (mask (T,), bounds (B, T), theta
+    (B,))."""
+    bounds = tile_upper_bounds(present, s)
+    theta = theta_from_seed(codes, s, bounds, k, tile=tile, n_seed=n_seed,
+                            n_items=n_items, id_offset=id_offset)
+    return survival_mask(bounds, theta), bounds, theta
+
+
 def group_queries(pq_mask: torch.Tensor, n_groups: int) -> torch.Tensor:
     """Greedy bucketing of per-query survivor sets -> (B,) int64 group ids.
 
@@ -624,8 +813,62 @@ def _check_flat(state: PrunedHeadState):
         raise ValueError(
             f"cascade_topk_ingraph needs a shards=1 state, got "
             f"shards={state.shards}")
-    if state.has_super:
-        raise NotImplementedError(_SUPER_SLICE)
+
+
+def _rung(count: int, rungs) -> int:
+    """Index of the first rung whose budget holds ``count``; the last rung
+    holds any count."""
+    return next((i for i, r in enumerate(rungs[:-1]) if count <= r),
+                len(rungs) - 1)
+
+
+def _hier_tail(codes, s, k, state: PrunedHeadState, *, seed_kw, ladder,
+               super_ladder, pin_rung, live):
+    """Pass 0 over the super-tiles, then the tail over the surviving
+    supers' children -> (vals, ids, stats of the tail).  Two host reads:
+    the super survivor count (it picks the super rung, whose prefix of the
+    super slots the tail gathers), then the child survivor count (it picks
+    the child rung)."""
+    tile, factor, t_total = state.tile, state.super_factor, state.n_tiles
+    n_super = state.n_super
+    sup_parts = state.super_meta_arrays()
+    sup_bounds = bounds_from_parts(state.backend, sup_parts, s)
+    theta, n_seed_used, seed_sf = theta_seed_ingraph(
+        codes, s, sup_bounds, k, tile=factor * tile,
+        degenerate=degenerate_from_parts(state.backend, sup_parts, state.b),
+        **seed_kw)
+    sup_slots, sup_count = compact_mask(survival_mask(sup_bounds, theta))
+    sup_rungs = normalize_ladder(
+        default_super_ladder(n_super) if super_ladder is None
+        else super_ladder, n_super, k, factor * tile)
+    if pin_rung:
+        sup_rungs = sup_rungs[:1]
+    sup_count = int(sup_count)                       # host read 1
+    i_sup = _rung(sup_count, sup_rungs)
+    r_sup = sup_rungs[i_sup]
+    # Children's global tile ids, ascending: supers ascend in the slots
+    # and children within each super.  A -1 super (negative ids) and the
+    # last super's children past T are gathered clamped and masked out.
+    gid = (sup_slots[:r_sup, None].long() * factor
+           + torch.arange(factor, device=s.device)).reshape(-1)
+    valid = (gid >= 0) & (gid < t_total)
+    safe = gid.clamp(0, t_total - 1)
+    child_bounds = bounds_from_parts(
+        state.backend, tuple(p[safe] for p in state.meta_arrays()), s)
+    child_slots, count = compact_values(
+        survival_mask(child_bounds, theta) & valid, gid)
+    crungs = normalize_ladder(ladder, r_sup * factor, k, tile)
+    if pin_rung:
+        crungs = crungs[:1]
+    count = int(count)                               # host read 2
+    vals, ids, rung = kernel_ops.pq_topk_tiles_ladder(
+        codes, s, k, [child_slots[:r] for r in crungs], count, tile=tile,
+        live=live)
+    return vals, ids, {
+        "count": count, "rungs": crungs, "rung": rung,
+        "n_seed_used": n_seed_used, "seed_sf": seed_sf,
+        "n_super": n_super, "n_super_survived": sup_count,
+        "super_rung_hit": i_sup, "bounds_computed": n_super + r_sup * factor}
 
 
 def cascade_topk_ingraph(codes: torch.Tensor, s: torch.Tensor, k: int,
@@ -636,7 +879,8 @@ def cascade_topk_ingraph(codes: torch.Tensor, s: torch.Tensor, k: int,
                          seed_max_tiles: int = DEFAULT_SEED_MAX_TILES,
                          seed_stab_tol: float = DEFAULT_SEED_STAB_TOL,
                          slot_budget: Optional[int] = None,
-                         ladder=None, pin_rung: bool = False,
+                         ladder=None, super_ladder=None,
+                         pin_rung: bool = False,
                          query_grouping: bool = False,
                          n_groups: int = DEFAULT_N_GROUPS,
                          live: Optional[torch.Tensor] = None,
@@ -658,6 +902,14 @@ def cascade_topk_ingraph(codes: torch.Tensor, s: torch.Tensor, k: int,
     survival, queries bucketed into groups, and a 2D (batch tile, slot)
     table so each batch tile scores only its group's survivors.
 
+    A state with a super level runs the hierarchical route: theta seeded
+    from the super bounds, pass 0 over the supers, and the fused kernel
+    over the surviving supers' surviving children.  ``super_ladder`` lists
+    the pass-0 budgets (default :func:`default_super_ladder`, exhaustive
+    rung appended); the child rungs are normalised against the super
+    rung's ``r_sup * factor`` children.  ``pin_rung`` pins both levels.
+    It cannot be combined with ``query_grouping``.
+
     ``live`` (N,) bool is the mutable catalogue's tombstone mask: dead rows
     (delisted items, capacity padding) are kept out of theta seeding and
     score ``-inf`` inside the fused kernel, and ``-inf`` winners get the id
@@ -677,40 +929,63 @@ def cascade_topk_ingraph(codes: torch.Tensor, s: torch.Tensor, k: int,
     t_total = state.n_tiles
     if ladder is None and slot_budget is not None:
         ladder = (int(slot_budget),)
-    rungs = normalize_ladder(ladder, t_total, k, tile)
-    if pin_rung:
-        rungs = rungs[:1]
-    seed_kw = dict(tile=tile, seed_policy=seed_policy, seed_tiles=seed_tiles,
-                   seed_max_tiles=seed_max_tiles, seed_stab_tol=seed_stab_tol,
-                   degenerate=degenerate_tile_mask(state), live=live)
-    bounds = tile_bounds(state, s)
-    if query_grouping and n_groups > 1:
-        bt = kernel_ops.group_batch_tile(bq, n_groups)
-        theta, n_seed_used, seed_sf = theta_seed_perquery(
-            codes, s, bounds, k, **seed_kw)
-        pq_mask = survival_mask_perquery(bounds, theta)
-        perm, inv, slots2d, counts = group_and_compact(
-            pq_mask, n_groups=n_groups, batch_tile=bt)
-        union = pq_mask.any(dim=0).sum(dtype=torch.int32)
-        # The one host read of the batch: group counts and the union count.
-        *group_counts, count = torch.cat([counts, union[None]]).tolist()
-        max_group = max(group_counts)
-        vals, ids, rung = kernel_ops.pq_topk_tiles_ladder(
-            codes, s[perm], k, [slots2d[:, :r] for r in rungs], max_group,
-            tile=tile, batch_tile=bt, live=live)
-        vals, ids = vals[inv], ids[inv]
-        n_bt = len(group_counts)
-        pairs_scored = sum(group_counts) * bt
-        pairs_union = count * n_bt * bt
-        n_groups_eff = n_bt
+    grouped = query_grouping and n_groups > 1
+    if grouped and state.has_super:
+        raise ValueError(
+            "query_grouping and hierarchical super-tiles are mutually "
+            "exclusive; strip the super level (with_super(state, 0)) or "
+            "disable grouping")
+    sup = {"n_super": 0, "n_super_survived": 0, "super_rung_hit": 0,
+           "bounds_computed": t_total}
+    if state.has_super:
+        vals, ids, tail = _hier_tail(
+            codes, s, k, state, ladder=ladder, super_ladder=super_ladder,
+            pin_rung=pin_rung, live=live,
+            seed_kw=dict(seed_policy=seed_policy, seed_tiles=seed_tiles,
+                         seed_max_tiles=seed_max_tiles,
+                         seed_stab_tol=seed_stab_tol, live=live))
+        rungs, rung, count = tail["rungs"], tail["rung"], tail["count"]
+        n_seed_used, seed_sf = tail["n_seed_used"], tail["seed_sf"]
+        sup = {key: tail[key] for key in sup}
     else:
-        theta, n_seed_used, seed_sf = theta_seed_ingraph(
-            codes, s, bounds, k, **seed_kw)
-        slots_full, count_t = compact_mask(survival_mask(bounds, theta))
-        count = max_group = int(count_t)            # the one host read
-        vals, ids, rung = kernel_ops.pq_topk_tiles_ladder(
-            codes, s, k, [slots_full[:r] for r in rungs], count, tile=tile,
-            live=live)
+        rungs = normalize_ladder(ladder, t_total, k, tile)
+        if pin_rung:
+            rungs = rungs[:1]
+        seed_kw = dict(tile=tile, seed_policy=seed_policy,
+                       seed_tiles=seed_tiles, seed_max_tiles=seed_max_tiles,
+                       seed_stab_tol=seed_stab_tol,
+                       degenerate=degenerate_tile_mask(state), live=live)
+        bounds = tile_bounds(state, s)
+        if grouped:
+            bt = kernel_ops.group_batch_tile(bq, n_groups)
+            theta, n_seed_used, seed_sf = theta_seed_perquery(
+                codes, s, bounds, k, **seed_kw)
+            pq_mask = survival_mask_perquery(bounds, theta)
+            perm, inv, slots2d, counts = group_and_compact(
+                pq_mask, n_groups=n_groups, batch_tile=bt)
+            union = pq_mask.any(dim=0).sum(dtype=torch.int32)
+            # The one host read of the batch: group counts and the union
+            # count.
+            *group_counts, count = torch.cat([counts, union[None]]).tolist()
+            max_group = max(group_counts)
+            vals, ids, rung = kernel_ops.pq_topk_tiles_ladder(
+                codes, s[perm], k, [slots2d[:, :r] for r in rungs],
+                max_group, tile=tile, batch_tile=bt, live=live)
+            vals, ids = vals[inv], ids[inv]
+            n_bt = len(group_counts)
+            pairs_scored = sum(group_counts) * bt
+            pairs_union = count * n_bt * bt
+            n_groups_eff = n_bt
+        else:
+            theta, n_seed_used, seed_sf = theta_seed_ingraph(
+                codes, s, bounds, k, **seed_kw)
+            slots_full, count_t = compact_mask(survival_mask(bounds, theta))
+            count = int(count_t)                    # the one host read
+            vals, ids, rung = kernel_ops.pq_topk_tiles_ladder(
+                codes, s, k, [slots_full[:r] for r in rungs], count,
+                tile=tile, live=live)
+    if not grouped:
+        max_group = count
         bt = kernel_ops.effective_batch_tile(bq)
         pairs_scored = pairs_union = count * (-(-bq // bt) * bt)
         n_groups_eff = 1
@@ -728,8 +1003,58 @@ def cascade_topk_ingraph(codes: torch.Tensor, s: torch.Tensor, k: int,
              "bound_backend": state.backend,
              "n_groups": n_groups_eff, "max_group_survived": max_group,
              "pairs_scored": pairs_scored, "pairs_union": pairs_union,
+             **sup}
+    return vals, ids, stats
+
+
+# ---------------------------------------------------------------------------
+# the host two-pass cascade (the reference route the cascade is held to)
+# ---------------------------------------------------------------------------
+
+
+def slot_bucket(n_survived: int, k: int, tile: int) -> int:
+    """Survivor slots rounded up to a power of two, at least enough tiles
+    to hold k."""
+    need = max(1, n_survived, -(-k // tile))
+    return 1 << (need - 1).bit_length()
+
+
+def cascade_topk(codes: torch.Tensor, s: torch.Tensor, k: int, *, tile: int,
+                 seed_tiles: int = 2, meta: Optional[TileMeta] = None,
+                 return_stats: bool = False):
+    """Exact top-k by the host two-pass cascade: pass 1 (dense-presence
+    bounds, greedy seed, survival mask, :func:`pruned_pass1`), the
+    survivors read to the host and listed in a power-of-two slot bucket
+    padded with the past-the-end tile (:func:`ops.sentinel_tile`, whose
+    rows all lie past N and score ``-inf``), then the fused kernel over
+    that list.  -> (vals (B,k), ids (B,k) int32[, stats]), bit-identical
+    to the exhaustive route; ``stats`` has :data:`STATS_KEYS`."""
+    n = codes.shape[0]
+    tile = min(tile, n)
+    if meta is None:
+        meta = get_tile_metadata(codes, int(s.shape[-1]), tile)
+    mask, _, _ = pruned_pass1(codes, meta.present, s, k, tile=tile,
+                              n_seed=seed_tiles)
+    survivors = mask.nonzero().flatten().cpu()          # the host read
+    n_surv = survivors.numel()
+    n_slots = slot_bucket(n_surv, k, tile)
+    tile_idx = torch.full((n_slots,), kernel_ops.sentinel_tile(n, tile),
+                          dtype=torch.int32)
+    tile_idx[:n_surv] = survivors
+    vals, ids = kernel_ops.pq_topk_tiles(codes, s, k, tile_idx, tile=tile)
+    if not return_stats:
+        return vals, ids
+    sf = n_surv / max(meta.n_tiles, 1)
+    pairs = n_surv * int(s.shape[0])
+    stats = {"n_tiles": meta.n_tiles, "n_survived": n_surv,
+             "n_scored": n_slots, "survival_fraction": sf,
+             "n_seed_used": min(max(seed_tiles, -(-k // tile)), meta.n_tiles),
+             "seed_survival_est": sf, "rung_hit": 0, "n_rungs": 1,
+             "slot_overflow": False, "bound_backend": "bitmask",
+             "n_groups": 1, "max_group_survived": n_surv,
+             "pairs_scored": pairs, "pairs_union": pairs,
              "n_super": 0, "n_super_survived": 0, "super_rung_hit": 0,
-             "bounds_computed": t_total}
+             "bounds_computed": meta.n_tiles}
     return vals, ids, stats
 
 
@@ -746,13 +1071,22 @@ def survival_count(codes: torch.Tensor, s: torch.Tensor, k: int,
                    seed_stab_tol: float = DEFAULT_SEED_STAB_TOL,
                    live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Surviving-tile count of one batch (0-d int32): the bounds + theta
-    prefix of the batch-any cascade, no scoring pass."""
+    prefix of the batch-any cascade, no scoring pass.  A super state seeds
+    theta from the super bounds, as its serve path does, and counts the
+    surviving child tiles (children of a pruned super cannot survive, so
+    this is the tail's survivor count)."""
     _check_flat(state)
     bounds = tile_bounds(state, s)
+    seed_parts, seed_tile, seed_bounds = state.meta_arrays(), state.tile, bounds
+    if state.has_super:
+        seed_parts = state.super_meta_arrays()
+        seed_tile *= state.super_factor
+        seed_bounds = bounds_from_parts(state.backend, seed_parts, s)
     theta, _, _ = theta_seed_ingraph(
-        codes, s, bounds, k, tile=state.tile, seed_policy=seed_policy,
+        codes, s, seed_bounds, k, tile=seed_tile, seed_policy=seed_policy,
         seed_tiles=seed_tiles, seed_max_tiles=seed_max_tiles,
-        seed_stab_tol=seed_stab_tol, degenerate=degenerate_tile_mask(state),
+        seed_stab_tol=seed_stab_tol,
+        degenerate=degenerate_from_parts(state.backend, seed_parts, state.b),
         live=live)
     return survival_mask(bounds, theta).sum(dtype=torch.int32)
 

@@ -5,7 +5,9 @@ d/m)}`` or a dense table ``{"table": (N, d)}``, and serves the routes of
 the reference's ``core/retrieval_head.py`` on one device: the paper's
 three algorithms, the scores-only kernel, the fused score+top-k kernel,
 the pruned cascade (``pqtopk_pruned``; a PQ head carries its metadata as
-``"pruned"``) and the approximate block-max route.
+``"pruned"``, with a super level when ``PQConfig.super_factor > 1``) and
+the approximate block-max route; :func:`top_items_pruned` is the host
+two-pass cascade the pruned route is held against.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ def init(generator: torch.Generator, n_items: int, d_model: int,
          pq: Optional[PQConfig] = None, codes=None, centroids=None,
          device="cpu") -> Params:
     """A dense table, or a PQ head with its pruning metadata (built once
-    here, per ``pq.bound_backend``, so the cascade never rebuilds it)."""
+    here, per ``pq.bound_backend`` and ``pq.super_factor``, so the cascade
+    never rebuilds it)."""
     if pq is None:
         table = torch.randn((n_items, d_model), generator=generator) * 0.02
         return {"table": table.to(device)}
@@ -184,3 +187,19 @@ def _top_items_pruned_ingraph(params: Params, phi: torch.Tensor, k: int, *,
         vals, ids, stats = out
         return vals, ids, stats["rung_hit"]
     return out
+
+
+def top_items_pruned(params: Params, phi: torch.Tensor, k: int, *,
+                     tile: int = DEFAULT_PRUNE_TILE,
+                     seed_tiles: int = pruning.DEFAULT_SEED_TILES,
+                     return_stats: bool = False):
+    """The host two-pass cascade (``pruning.cascade_topk``): dense presence
+    metadata cached per codes tensor, a greedy seed, the survivors read to
+    the host, then the fused kernel over their tiles.  Exact, ties
+    included; serving uses ``method="pqtopk_pruned"`` instead.  ->
+    (values (B,k), ids (B,k)[, stats])."""
+    if not is_pq(params):
+        raise ValueError("top_items_pruned requires a PQ head")
+    return pruning.cascade_topk(params["codes"], _subid_scores(params, phi),
+                                k, tile=tile, seed_tiles=seed_tiles,
+                                return_stats=return_stats)

@@ -9,7 +9,8 @@ bias) stays 0-d.  The layouts already agree: dense weights stay
 ``(d_in, d_out)``, codes keep their storage dtype (``uint16`` at b=512).  The pruned-cascade metadata ``item_emb.pruned`` (the reference's
 ``PrunedHeadState``, a dataclass) becomes the port's
 :class:`~repro_torch.core.pruning.PrunedHeadState`, field for field; its
-``uint32`` presence words are carried as ``int32`` with the same bits.
+``uint32`` presence words are carried as ``int32`` with the same bits, and
+a super level's arrays cross over with the rest.
 ``mutable_state_from_jax`` carries a reference ``MutableHeadState`` over
 whole (codes, live mask, pruning metadata and host bookkeeping), so both
 packages can start from one mutable catalogue.
@@ -34,19 +35,15 @@ def _array(a, device):
 
 
 def pruned_state_from_jax(state: Any, device="cpu") -> PrunedHeadState:
-    """The reference's flat ``PrunedHeadState`` (numpy leaves) -> the
-    port's.  Raises on a sharded or super-tile state: those layouts are
-    later port slices."""
+    """The reference's ``PrunedHeadState`` (numpy leaves) -> the port's,
+    super-tile arrays included.  Raises on a sharded state: that layout is
+    a later port slice."""
     fields = {f.name: getattr(state, f.name)
               for f in dataclasses.fields(state)}
     if fields["shards"] != 1:
         raise NotImplementedError(
             f"pruned state with shards={fields['shards']}: the sharded "
             "layout is a later port slice")
-    if fields["super_factor"] > 1:
-        raise NotImplementedError(
-            f"pruned state with super_factor={fields['super_factor']}: "
-            "super-tiles are a later port slice")
     for name in ARRAY_FIELDS:
         if fields[name] is not None:
             fields[name] = _array(fields[name], device)
@@ -55,7 +52,7 @@ def pruned_state_from_jax(state: Any, device="cpu") -> PrunedHeadState:
 
 def mutable_state_from_jax(mstate: Any, device="cpu") -> MutableHeadState:
     """The reference's ``MutableHeadState`` -> the port's, on ``device``:
-    codes, live mask, the flat pruning state, staleness, the freelist in
+    codes, live mask, the pruning state, staleness, the freelist in
     order, the slot high-water mark and the mutation count."""
     out = MutableHeadState(
         _array(mstate.codes, device),

@@ -3,7 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec-recjpq \
       --reduced --requests 256 --method pqtopk_fused --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --method pqtopk_pruned \
-      [--query-grouping] --device cuda
+      [--query-grouping | --super-factor 64] --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --mutable \
       --churn-steps 8 [--log-dir DIR [--snapshot-every N] [--recover]] \
       --device cuda
@@ -34,7 +34,7 @@ from repro_torch.training.fault_tolerance import (ServeFaultInjector,
                                                   SimulatedFailure)
 
 _ROUTER = ("the replicated router (serving/router.py) is a later port "
-           "slice (ROADMAP queue A 3)")
+           "slice (ROADMAP queue A 4)")
 
 
 def _ms(v) -> str:
@@ -85,6 +85,12 @@ def main(argv=None):
                     help="pruned-cascade bound backend (overrides the arch "
                          "config's PQConfig): bitmask = code-presence "
                          "sets; range = int16 min/max code ranges")
+    ap.add_argument("--super-factor", type=int, default=None,
+                    help="hierarchical super-tile factor for the pruned "
+                         "cascade (overrides the arch config's PQConfig): "
+                         "groups of this many child tiles get OR-ed/"
+                         "hulled pass-0 metadata; 0 disables the level "
+                         "(mutually exclusive with --query-grouping)")
     ap.add_argument("--no-calibrate", action="store_true",
                     help="disable the build-time slot-budget ladder "
                          "calibration for the pruned cascade (serve the "
@@ -177,6 +183,8 @@ def main(argv=None):
         pq_overrides["query_grouping"] = True
     if args.n_groups is not None:
         pq_overrides["n_groups"] = args.n_groups
+    if args.super_factor is not None:
+        pq_overrides["super_factor"] = args.super_factor
     if pq_overrides:
         cfg = replace(cfg, pq=replace(cfg.pq, **pq_overrides))
     params = seqrec.init_seqrec(torch.Generator().manual_seed(0), cfg)

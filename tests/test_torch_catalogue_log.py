@@ -108,6 +108,46 @@ def test_port_log_recovers_in_the_reference(tmp_path, backend):
     assert t.free == [int(x) for x in j.free]
 
 
+@pytest.mark.parametrize("backend", ["bitmask", "range"])
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_super_factor_log_recovers_in_the_other_package(tmp_path, writer,
+                                                        backend):
+    """A catalogue with a super level (factor 4: capacity 512 = 2 supers of
+    4 tiles), logged by one package and recovered by the other: the meta
+    carries the factor, and the recovered state matches at both levels."""
+    rng = np.random.default_rng(12)
+    if writer == "reference":
+        w = jm.MutableHeadState.build(jnp.asarray(_codes(11)), B_SUB, TILE,
+                                      backend=backend, super_factor=4)
+        log_mod, churn = jlog, jserve._churn_ops
+    else:
+        w = tm.MutableHeadState.build(torch.from_numpy(_codes(11)), B_SUB,
+                                      TILE, backend=backend, super_factor=4)
+        log_mod, churn = tlog, tserve._churn_ops
+    with log_mod.CatalogueLog(str(tmp_path), snapshot_every=24) as log:
+        log.snapshot(w)
+        for _ in range(8):
+            log.append_many(churn(w, rng, 6, B_SUB))
+            log.maybe_snapshot(w)
+    assert tlog.CatalogueLog(str(tmp_path), read_only=True).meta()[
+        "super_factor"] == 4
+    t, lsn = tlog.CatalogueLog(str(tmp_path), read_only=True).recover(
+        device="cpu", verify=True)
+    j, jlsn = jlog.CatalogueLog(str(tmp_path), read_only=True).recover(
+        verify=True)
+    assert lsn == jlsn == 48 and t.super_factor == j.super_factor == 4
+    assert t.state.n_super == j.state.n_super == 2
+    _assert_same(t, j)
+    want = mutable_state_from_jax(j).state
+    for f in ("super_packed", "super_lo", "super_hi"):
+        got, exp = getattr(t.state, f), getattr(want, f)
+        assert (got is None) == (exp is None), f
+        if got is not None:
+            assert torch.equal(got, exp), f
+    _eq(t.codes.numpy(), np.asarray(w.codes))
+    _eq(t.live.numpy(), np.asarray(w.live))
+
+
 def test_torn_tail_is_cut_and_recovery_stops_before_it(tmp_path):
     t = tm.MutableHeadState.build(torch.from_numpy(_codes(5)), B_SUB, TILE)
     log = tlog.CatalogueLog(str(tmp_path), fsync_every=4)
@@ -193,7 +233,7 @@ def test_serve_cli_mutable_logs_and_recovers(tmp_path, capsys):
     assert "recovered catalogue from" in out and "at lsn 16" in out
     for bad in (["--replicas", "2"], ["--chaos"],
                 ["--crash-replica-at", "1:4"]):
-        with pytest.raises(SystemExit, match="queue A 3"):
+        with pytest.raises(SystemExit, match="queue A 4"):
             tserve.main(base + bad)
     for bad, why in ((["--method", "pqtopk_fused"], "live-mask"),
                      (["--recover"], "needs --log-dir")):
@@ -203,3 +243,28 @@ def test_serve_cli_mutable_logs_and_recovers(tmp_path, capsys):
         tserve.main(["--reduced", "--device", "cpu", "--log-dir", log_dir])
     with pytest.raises(SystemExit, match="requires --mutable"):
         tserve.main(["--reduced", "--device", "cpu", "--churn-steps", "2"])
+
+
+def test_serve_cli_super_factor_matches_the_reference_launcher(tmp_path,
+                                                              capsys):
+    """``--super-factor`` with ``--mutable``: the launcher's catalogue has the
+    super level, and its WAL is byte-identical to the reference launcher's
+    with the same flags; the refusal of ``--query-grouping`` beside it is
+    the config's."""
+    flags = ["--reduced", "--max-batch", "8", "--mutable", "--requests", "24",
+             "--churn-steps", "3", "--super-factor", "4"]
+    tserve.main(flags + ["--device", "cpu", "--log-dir",
+                         str(tmp_path / "t")])
+    out = capsys.readouterr().out
+    assert "catalogue: capacity=" in out and "n_swaps=3" in out
+    jserve.main(flags + ["--log-dir", str(tmp_path / "j")])
+    capsys.readouterr()
+    for name in ("wal.log", "meta.json"):
+        with open(tmp_path / "t" / name, "rb") as a, \
+                open(tmp_path / "j" / name, "rb") as b:
+            assert a.read() == b.read(), name
+    t, _ = tlog.CatalogueLog(str(tmp_path / "t")).recover(device="cpu")
+    assert t.super_factor == 4 and t.state.has_super
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tserve.main(["--reduced", "--device", "cpu", "--super-factor", "4",
+                     "--query-grouping"])

@@ -239,6 +239,128 @@ def test_mutable_cascade_matches_masked_oracle(cuda_device):
             assert torch.equal(v, ov) and torch.equal(i, oi)
 
 
+def _clustered(n, m, b, grain, seed):
+    """A tile-coherent uint8 catalogue and S decaying in the code index
+    (the hierarchical route's regime; ``examples/billion_item_sim``)."""
+    from repro_torch.examples import billion_item_sim as sim
+    return (torch.from_numpy(sim.make_clustered_codes(n, m, b, grain,
+                                                      seed=seed)),
+            sim.make_popularity_scores(3, m, b, seed=seed))
+
+
+@pytest.mark.parametrize("backend", ["bitmask", "range"])
+def test_hier_cascade_matches_exhaustive_route(cuda_device, backend):
+    """Flat and hierarchical cascades on the card, bit-identical to the
+    one-shot fused route and to each other; the hierarchical one gathers
+    fewer bounds and launches form (b) once and ``pq_scores`` once."""
+    from repro_torch.core import pruning
+    n, m, b, tile, factor = 300_001, 8, 256, 1024, 16
+    codes, s = _clustered(n, m, b, tile * factor, seed=3)
+    codes, s = codes.to(cuda_device), s.to(cuda_device)
+    ev, ei = tops.pq_topk(codes, s, 10)
+    flat = pruning.build_pruned_state(codes, b, tile, backend=backend)
+    hier = pruning.with_super(flat, factor)
+    fv, fi, fst = pruning.cascade_topk_ingraph(codes, s, 10, flat,
+                                               return_stats=True)
+    before = (tkernel.pq_topk_fused_cuda.launches,
+              tkernel.pq_scores_cuda.launches)
+    hv, hi, hst = pruning.cascade_topk_ingraph(codes, s, 10, hier,
+                                               return_stats=True)
+    assert (tkernel.pq_topk_fused_cuda.launches,
+            tkernel.pq_scores_cuda.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    for v, i in ((fv, fi), (hv, hi)):
+        assert torch.equal(v, ev) and torch.equal(i, ei)
+    assert hst["bounds_computed"] < fst["bounds_computed"] == flat.n_tiles
+    assert hst["n_survived"] == fst["n_survived"]
+    assert int(pruning.survival_count(codes, s, 10, hier)) == \
+        hst["n_survived"]
+
+
+def test_host_cascade_sentinel_tiles_match_plain_version(cuda_device):
+    """The host cascade's slot list, padded with the past-the-end tile: the
+    kernel against its plain version, and the cascade against the in-graph
+    one and the exhaustive route."""
+    from repro_torch.core import pruning
+    n, m, b, tile = 200_003, 8, 256, 1024
+    codes, s = _clustered(n, m, b, tile * 8, seed=4)
+    gc, gs = codes.to(cuda_device), s.to(cuda_device)
+    nt = tops.n_tiles(n, tile)
+    idx = torch.tensor([0, 3, nt - 1, nt, nt, nt], dtype=torch.int32)
+    for k in (1, 10, 100):
+        got = tops.pq_topk_slots(gc, gs, k, idx.to(cuda_device), n_items=n,
+                                 tile=tile)
+        want = tref.pq_topk_slots(codes, s, k, idx, n_items=n, tile=tile)
+        _bits_equal([g.cpu() for g in got], want)
+    ev, ei = tops.pq_topk(gc, gs, 10)
+    v, i, st = pruning.cascade_topk(gc, gs, 10, tile=tile,
+                                    return_stats=True)
+    iv, ii = pruning.cascade_topk_ingraph(
+        gc, gs, 10, pruning.build_pruned_state(gc, b, tile))
+    assert torch.equal(v, ev) and torch.equal(i, ei)
+    assert torch.equal(iv, ev) and torch.equal(ii, ei)
+    assert st["n_scored"] > st["n_survived"]       # sentinel tiles listed
+
+
+def test_mutable_super_cascade_matches_masked_oracle(cuda_device):
+    """A mutable catalogue with a super level on the card, after churn:
+    the hierarchical masked cascade (form d) against the exhaustive masked
+    route, and a full retighten against the oracle at both levels."""
+    from repro_torch.core import pruning
+    from repro_torch.core.mutation import MutableHeadState
+    n, m, b, bq = 30_000, 8, 256, 24
+    rng = np.random.default_rng(14)
+    codes = torch.from_numpy(rng.integers(0, b, (n, m)).astype(
+        np.uint8)).to(cuda_device)
+    for backend in ("bitmask", "range"):
+        mstate = MutableHeadState.build(codes, b, tile=1024,
+                                        backend=backend, super_factor=4)
+        assert mstate.cap % 4096 == 0 and mstate.state.n_super == 8
+        for iid in rng.choice(np.arange(1, n), 3000, replace=False):
+            mstate.delete(int(iid))
+        for _ in range(50):
+            mstate.insert(rng.integers(0, b, m))
+        s = torch.from_numpy(rng.standard_normal((bq, m, b)).astype(
+            np.float32)).to(cuda_device)
+        sc = torch.where(mstate.live[None, :],
+                         tref.pq_scores(mstate.codes, s), float("-inf"))
+        ov, oi = tops._merge_slot_winners(sc[:, None, :], torch.arange(
+            mstate.cap, dtype=torch.int32, device=cuda_device).expand(
+                bq, 1, -1), 10)
+        before = tkernel.pq_topk_fused_cuda.launches_live
+        v, i = pruning.cascade_topk_ingraph(
+            mstate.codes, s, 10, mstate.state, live=mstate.live,
+            ladder=(4, 8), super_ladder=(2,))
+        assert tkernel.pq_topk_fused_cuda.launches_live == before + 1
+        assert torch.equal(v, ov) and torch.equal(i, oi)
+        mstate.retighten()
+        want = mstate.rebuild_oracle()
+        for f in ("packed", "code_lo", "code_hi", "super_packed",
+                  "super_lo", "super_hi"):
+            got, exp = getattr(mstate.state, f), getattr(want, f)
+            assert (got is None) == (exp is None)
+            assert got is None or torch.equal(got, exp), f
+
+
+def test_stream_matches_one_shot_route(cuda_device):
+    """The chunked stream (uint8 chunks, form a each, host merge) against
+    the one-shot fused route over the whole catalogue on the card."""
+    from repro_torch.examples import billion_item_sim as sim
+    rng = np.random.default_rng(15)
+    codes = rng.integers(0, 256, (1_000_003, 8), dtype=np.uint8)
+    s = torch.from_numpy(rng.standard_normal((2, 8, 256)).astype(
+        np.float32)).to(cuda_device)
+    before = tkernel.pq_topk_fused_cuda.launches
+    v, i, n_chunks = sim.streaming_pqtopk(codes, s, 10, 300_000,
+                                          id_base=2 ** 33)
+    assert n_chunks == 4 and tkernel.pq_topk_fused_cuda.launches == \
+        before + 4
+    ov, oi = tops.pq_topk(torch.from_numpy(codes).to(cuda_device), s, 10)
+    np.testing.assert_array_equal(v, ov.cpu().numpy())
+    np.testing.assert_array_equal(i, oi.cpu().numpy().astype(np.int64)
+                                  + 2 ** 33)
+
+
 @pytest.mark.parametrize("v,d,n_bags,bag,mode,weighted", eb_ref.GRID)
 def test_embedding_bag_matches_plain_version(cuda_device, v, d, n_bags, bag,
                                              mode, weighted):

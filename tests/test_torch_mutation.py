@@ -299,9 +299,11 @@ def test_capacity_freelist_and_validation_match_reference():
         with pytest.raises(ValueError, match="unknown catalogue op"):
             mod.apply_op(mgr, ("rename", 3))
     _assert_same_state(t, j)
-    with pytest.raises(NotImplementedError, match="queue A 1"):
-        tm.MutableHeadState.build(torch.from_numpy(codes), B_SUB, tile=16,
-                                  super_factor=4)
+    # A super level rounds the capacity up to whole supers (64 rows here).
+    assert tm.MutableHeadState.build(torch.from_numpy(codes), B_SUB, tile=16,
+                                     super_factor=4).cap == 64 == \
+        jm.MutableHeadState.build(jnp.asarray(codes), B_SUB, tile=16,
+                                  super_factor=4).cap
     with pytest.raises(ValueError, match="bound backend"):
         tm.MutableHeadState.build(torch.from_numpy(codes), B_SUB,
                                   backend="bloom")

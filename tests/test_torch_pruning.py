@@ -270,9 +270,10 @@ def test_survival_counts_match_reference(backend, grouped):
 
 
 def test_later_slices_raise():
+    """The sharded layout is still a later slice (super-tiles are ported:
+    ``tests/test_torch_hierarchical.py``)."""
     jc, js, jst, tc, ts, tst = _states("hot", 24, "bitmask")
-    with pytest.raises(NotImplementedError, match="super"):
-        tp.build_pruned_state(tc, B_SUB, TILE, super_factor=4)
+    assert tp.build_pruned_state(tc, B_SUB, TILE, super_factor=4).has_super
     with pytest.raises(NotImplementedError, match="shards"):
         tp.build_pruned_state(tc, B_SUB, TILE, shards=2)
     # The tombstone mask is ported (test_torch_mutation.py); a mask of
@@ -286,8 +287,7 @@ def test_later_slices_raise():
     from dataclasses import replace
     with pytest.raises(ValueError, match="shards=1"):
         tp.cascade_topk_ingraph(tc, ts, 10, replace(tst, shards=2))
-    with pytest.raises(NotImplementedError, match="super"):
-        tp.cascade_topk_ingraph(tc, ts, 10, replace(tst, super_factor=4))
-    for bad in (dict(shards=2), dict(super_factor=4)):
-        with pytest.raises(NotImplementedError):
-            pruned_state_from_jax(replace(jst, **bad))
+    with pytest.raises(NotImplementedError, match="shards"):
+        pruned_state_from_jax(replace(jst, shards=2))
+    assert pruned_state_from_jax(jax.tree_util.tree_map(
+        np.asarray, jp.with_super(jst, 4))).n_super == 8       # 30 tiles
