@@ -24,7 +24,14 @@ its plain version, and mutable engines at full width (capacity 2,097,152
 rows; bitmask over 100 batches, range and bitmask with 16 supers over 20)
 with 8 catalogue mutations and a hot swap between batches, each logged to
 a durable write-ahead log that is recovered and checked bit for bit at
-the end.  Then the
+the end.  Then the replicated fabric (``serving/router.py``) at full width:
+a healthy 2-replica fused fabric over the same 6,400 histories (untagged
+results bit-identical to the fused engine's, form (a) launched once per
+job the replicas ran), the serve launcher's ``--chaos`` plan on 3
+replicas (ejection, re-admission, a hedge and its suppressed duplicate),
+the load ladder, 1, 2 and 4 replicas side by side (at windows of two and
+eight batches and at two a replica), and a durable mutable
+2-replica fabric with a crashed replica recovered from its log.  Then the
 recsys slice: the embedding-bag kernel against its plain version (phase
 1); the embedding substrate's ``lookup_bag(use_kernel=True)`` on BST's
 full-width item table (4,000,000 x 32; 512 and 262,144 bags, cross-checked
@@ -1070,7 +1077,8 @@ def serve_paths(params, cfg, dev):
     and with super-tiles), each with the launch counts set to 0 just
     before and read just after; check the counts and that every batch
     agrees with the plain or fused route.  Returns each path's launch
-    counts and engine stats."""
+    counts and engine stats (with its ``req_s``: requests over the wall
+    time of its serve), and the fused engine's results."""
     import numpy as np
     from repro_torch.serving.engine import RetrievalEngine
     grouped_cfg = replace(cfg, pq=replace(cfg.pq, query_grouping=True))
@@ -1104,10 +1112,12 @@ def serve_paths(params, cfg, dev):
                 "pqtopk_pruned_grouped": {"pq_topk_fused_2d": n_batches},
                 "pqtopk_pruned_super": {"pq_topk_fused": n_batches,
                                         "pq_scores": n_batches}}
-    outs, launches = {}, {}
+    outs, launches, walls = {}, {}, {}
     for name, _, _, _ in paths:
         reset_counts()
+        t0 = time.monotonic()
         outs[name] = serve(engines[name], request_stream(cfg))
+        walls[name] = time.monotonic() - t0
         launches[name] = read_counts()
         expect_counts(name, launches[name], **expected[name])
     stats = {name: eng.stats() for name, eng in engines.items()}
@@ -1137,14 +1147,16 @@ def serve_paths(params, cfg, dev):
                  f"{st['rung_counts']}" if "ladder" in st else "")
         print(f"engine {name}: served {int(st['count'])} mRT="
               f"{st['mRT_ms']:.3f}ms p99={st['p99_ms']:.3f}ms "
+              f"{N_REQUESTS / walls[name]:.1f} req/s "
               f"n_compiles={int(st['n_compiles'])} shed={int(st['shed'])}"
               + extra)
+        st["req_s"] = N_REQUESTS / walls[name]
     print(f"engine: {N_REQUESTS} requests in {n_batches} batches per path; "
           "pqtopk_fused and pqtopk_kernel bit-identical to pqtopk, the three "
           "pqtopk_pruned engines (batch-any, grouped, super-tiles of "
           f"{HIER_FACTOR}) bit-identical to pqtopk_fused; p99 is near the "
           "slowest batch (a request's latency is its batch's)")
-    return launches, stats
+    return launches, stats, outs["pqtopk_fused"]
 
 
 def live_mask(cap, n_real, tile, seed):
@@ -1443,6 +1455,373 @@ def mutable_path(params, cfg, dev, n_sms, frozen_stats):
     return {"ms": split["kernel"], "plain_ms": plain, "bound_ms": bnd,
             "bound_by": by,
             "launches": launches["pq_topk_fused_live"]}
+
+
+# ---- the replicated fabric (serving/router.py) -------------------------
+ROUTER_SCALING = (1, 2, 4)         # replicas of the scaling lines
+# ... each driven at these windows: two batches (what one replica keeps in
+# flight) and two batches a replica of the largest fleet.
+SCALING_WINDOWS = (2 * MAX_BATCH, 2 * max(ROUTER_SCALING) * MAX_BATCH)
+DURABLE_BATCHES = 20               # mutable fabric: logged churn between each
+CRASH_AT_BATCH = 8                 # ... and replica 1 crashed after this one
+
+
+def drive(router, histories, base=0, window=None, ids=None):
+    """Submit ``histories`` in batches of MAX_BATCH (request id ``base + j``
+    for history ``j``, so each batch is one the engine phase served),
+    keeping at most ``window`` requests unanswered (closed loop; default:
+    two batches in flight per replica), and drain.  Returns ({id: Result},
+    wall seconds)."""
+    window = window or 2 * router.n_replicas * MAX_BATCH
+    from repro_torch.serving.engine import Request
+    t0 = time.monotonic()
+    done0 = len(router._done_ids)
+    sent = 0
+    while sent < len(histories):
+        while sent < len(histories) and \
+                sent - (len(router._done_ids) - done0) < window:
+            for j in range(sent, min(sent + MAX_BATCH, len(histories))):
+                router.submit(Request(base + j, histories[j], k=K))
+            sent += MAX_BATCH
+        router.pump(block=True, timeout=0.01)
+    out = {r.request_id: r for r in router.drain(timeout_s=120.0)}
+    return out, time.monotonic() - t0
+
+
+def settle(router, timeout_s=60.0):
+    """Pump until no job is queued or in flight on any replica (a hedge's
+    slower copy included), then wait for the card."""
+    import torch
+    t0 = time.monotonic()
+    while any(rs.inflight for rs in router.replicas) or router._jobs:
+        router.pump(block=True, timeout=0.01)
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError("router did not settle")
+    torch.cuda.synchronize()
+
+
+def launched_jobs(router):
+    """Jobs the replicas launched: every dispatch that did not fail (each
+    one that got past its fault plan launched exactly one batch)."""
+    st = router.stats()["replicas"]
+    done = sum(r["completed"] for r in st.values())
+    if done != sum(r["dispatched"] - r["failures"] for r in st.values()):
+        raise AssertionError(f"router jobs do not add up: {st}")
+    return done
+
+
+def check_untagged(what, res, want, base=0):
+    """Untagged results bit-identical to the fused engine's for the same
+    history; returns how many were checked."""
+    import numpy as np
+    n = 0
+    for rid, r in res.items():
+        if r.degraded or r.shed:
+            continue
+        w = want[(rid - base) % N_REQUESTS]
+        if not (np.array_equal(r.items, w.items)
+                and np.array_equal(r.scores, w.scores)):
+            raise AssertionError(f"{what}: request {rid} on replica "
+                                 f"{r.replica} differs from the engine")
+        n += 1
+    return n
+
+
+def router_line(what, router, res, wall, window=None):
+    """One line of the fabric's numbers.  ``window``: the closed loop's
+    bound on unanswered requests, printed with the latency it alone
+    implies (window / throughput, Little's law)."""
+    st = router.stats()
+    per = " ".join(f"r{rid}={rep['completed']}"
+                   for rid, rep in st["replicas"].items())
+    little = (f" window={window} window/throughput="
+              f"{window * wall / len(res) * 1e3:.3f}ms" if window else "")
+    print(f"router {what}: {len(res)} requests {len(res) / wall:.1f} req/s "
+          f"p50={st['p50_ms']:.3f}ms p99={st['p99_ms']:.3f}ms{little} "
+          "completions "
+          f"{per} hedges={int(st['hedges'])} hedge_wins="
+          f"{int(st['hedge_wins'])} dup_suppressed="
+          f"{int(st['duplicates_suppressed'])} redispatched="
+          f"{int(st['redispatched'])} degraded={st['degraded_results']}")
+    return st
+
+
+def router_phase(params, cfg, dev, fused_out, path_stats):
+    """The replicated fabric at full width, each part with the launch counts
+    set to 0 after its warm-up and read after it: a healthy K=2 fused
+    fabric over the engine phase's 6,400 histories (untagged results
+    bit-identical to the fused engine's, form (a) once per launched job,
+    no pq_scores); the serve launcher's --chaos plan on K=3 (crash window
+    (1, 4) on replica 1, ejected at its first failure; a 250 ms straggle
+    window (0, 3) on replica 2): one Result per request, an ejection and a
+    re-admission, a hedge and its suppressed duplicate; the load ladder
+    (k-capped results are prefixes of the exact ones, shed ones tagged,
+    the level back at 0); K = 1, 2, 4 without hedging, each at windows of
+    two and eight batches and at two batches a replica (req/s, p50, p99,
+    the window's own queue time, per-replica completions beside the
+    engine's); and a durable mutable
+    K=2 fabric (capacity 2,097,152) with logged churn and a crashed
+    replica, recovered from the log, re-admitted only after it, then equal
+    to the writer's catalogue bit for bit and serving batches equal to the
+    masked oracle's."""
+    import numpy as np
+    import torch
+    from repro_torch.core.mutation import MutableHeadState
+    from repro_torch.core.pruning import ARRAY_FIELDS
+    from repro_torch.launch.serve import _churn_ops
+    from repro_torch.serving.catalogue_log import CatalogueLog
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.router import ReplicaRouter
+    from repro_torch.training.fault_tolerance import ReplicaFaultPlan
+    t_phase = time.monotonic()
+    hist = request_stream(cfg)
+    fz = path_stats["pqtopk_fused"]
+    kw = dict(k=K, max_batch=MAX_BATCH, method="pqtopk_fused", device=dev)
+    # The closed loop keeps up to two batches a replica unanswered: the
+    # ladder's watermarks (default 256) are out of its way but in the
+    # ladder part's.
+    calm = dict(degrade_high=1 << 30, **kw)
+
+    # ---- healthy K=2 -------------------------------------------------
+    with ReplicaRouter.for_seqrec(params, cfg, n_replicas=2,
+                                  **calm) as router:
+        router.warmup()
+        reset_counts()
+        res, wall = drive(router, hist)
+        settle(router)
+        jobs = launched_jobs(router)
+        expect_counts("router healthy K=2", read_counts(), pq_topk_fused=jobs)
+        if sorted(res) != list(range(N_REQUESTS)):
+            raise AssertionError("router healthy: not one Result per request")
+        n = check_untagged("router healthy", res, fused_out)
+        if n != N_REQUESTS:
+            raise AssertionError(f"router healthy: {N_REQUESTS - n} results "
+                                 "tagged or shed")
+        router_line("healthy K=2", router, res, wall)
+    print(f"router healthy K=2: {n} results bit-identical to the fused "
+          f"engine's, {jobs} jobs = {jobs} form (a) launches, pq_scores 0")
+
+    # ---- chaos: the --chaos plan, K=3 ---------------------------------
+    plans = {1: ReplicaFaultPlan(crash_windows=((1, 4),)),
+             2: ReplicaFaultPlan(slow_windows=((0, 3),), slow_ms=250.0)}
+    with ReplicaRouter.for_seqrec(params, cfg, n_replicas=3, fault_plans=plans,
+                                  suspect_after=1, eject_after=1,
+                                  cooldown_ms=20.0, **calm) as router:
+        router.warmup()
+        reset_counts()
+        res, wall = drive(router, hist)
+        extra = 0
+        while router.replicas[1].readmissions == 0:
+            more, _ = drive(router, hist[:2 * MAX_BATCH],
+                            base=N_REQUESTS * (2 + extra))
+            res.update(more)
+            extra += 1
+            if extra > 50:
+                raise AssertionError("chaos: replica 1 never re-admitted")
+        settle(router)
+        jobs = launched_jobs(router)
+        expect_counts("router chaos K=3", read_counts(), pq_topk_fused=jobs)
+        if sorted(res) != sorted(router._expected) \
+                or router._expected != router._done_ids:
+            raise AssertionError("chaos: not exactly one Result per request")
+        st = router_line("chaos K=3", router, res, wall)
+        r1 = st["replicas"][1]
+        if r1["ejections"] < 1 or r1["readmissions"] < 1 \
+                or st["hedges"] < 1 or st["hedge_wins"] < 1 \
+                or st["duplicates_suppressed"] < 1:
+            raise AssertionError(f"chaos: expected an ejection, a "
+                                 f"re-admission and a suppressed hedge: {st}")
+        n = check_untagged("router chaos", res, fused_out)
+        print(f"router chaos K=3: {len(res)} requests, each answered once; "
+              f"replica 1 failures={r1['failures']} ejections="
+              f"{r1['ejections']} readmissions={r1['readmissions']}; "
+              f"ejection to re-admission (replica: ms) "
+              + ", ".join(f"{rid}: {t:.1f}" for rid, t in router.readmit_ms)
+              + "; stragglers " + ", ".join(
+                  f"{rid}: {rep['stragglers']}"
+                  for rid, rep in st["replicas"].items()) + "; "
+              f"{n} untagged results bit-identical; {jobs} jobs = form (a) "
+              "launches")
+
+    # ---- the load ladder ----------------------------------------------
+    with ReplicaRouter.for_seqrec(params, cfg, n_replicas=2, hedge=False,
+                                  degrade_high=256, degrade_low=64,
+                                  degrade_k_cap=4, recover_patience=3,
+                                  **kw) as router:
+        router.warmup()
+        reset_counts()
+        base = 100 * N_REQUESTS
+        burst = 16 * MAX_BATCH
+        for j in range(burst):
+            router.submit(Request(base + j, hist[j], k=K))
+        for _ in range(20):
+            router.pump()
+            if router.level == 3:
+                break
+        if router.level != 3:
+            raise AssertionError(f"ladder reached level {router.level}, "
+                                 "not 3")
+        for j in range(burst, burst + MAX_BATCH):       # shed at submit
+            router.submit(Request(base + j, hist[j], k=K))
+        res = {r.request_id: r for r in router.drain(timeout_s=120.0)}
+        t0 = time.monotonic()
+        while router.level:
+            router.pump(block=True, timeout=0.01)
+            if time.monotonic() - t0 > 30:
+                raise AssertionError("ladder did not recover to level 0")
+        settle(router)
+        jobs = launched_jobs(router)
+        expect_counts("router ladder", read_counts(), pq_topk_fused=jobs)
+        tags = {}
+        for rid, r in res.items():
+            tags[r.degraded] = tags.get(r.degraded, 0) + 1
+            w = fused_out[rid - base]
+            if r.degraded == "load_shed":
+                ok = r.shed and r.items.size == 0
+            elif r.degraded == "k_cap":
+                ok = (r.items.shape == (4,)
+                      and np.array_equal(r.items, w.items[:4])
+                      and np.array_equal(r.scores, w.scores[:4]))
+            else:
+                ok = r.degraded == "" and np.array_equal(r.items, w.items) \
+                    and np.array_equal(r.scores, w.scores)
+            if not ok:
+                raise AssertionError(f"ladder: request {rid} ({r.degraded!r})"
+                                     " is wrong or untagged")
+        if sorted(res) != list(range(base, base + burst + MAX_BATCH)) \
+                or tags.get("k_cap", 0) < 1 or tags.get("load_shed", 0) < 1:
+            raise AssertionError(f"ladder: results {tags}")
+        st = router.stats()
+        print(f"router ladder: burst of {burst} + {MAX_BATCH} -> level 3, "
+              f"tags {tags} (k_cap results are the exact top-4 prefixes, "
+              f"load_shed ones shed), degrade_events="
+              f"{int(st['degrade_events'])} recover_events="
+              f"{int(st['recover_events'])}, level back at 0")
+
+    # ---- scaling: K = 1, 2, 4 ------------------------------------------
+    print(f"engine pqtopk_fused (same run): mRT={fz['mRT_ms']:.3f}ms "
+          f"p99={fz['p99_ms']:.3f}ms {fz['req_s']:.1f} req/s")
+    # A closed loop's p50 is mostly its own queue (window / throughput), so
+    # every K is driven at the same windows (latency at equal load) and at
+    # two batches a replica (the fleet kept busy).
+    for n_rep in ROUTER_SCALING:
+        for window in sorted(set(SCALING_WINDOWS)
+                             | {2 * n_rep * MAX_BATCH}):
+            what = f"K={n_rep} window={window}"
+            with ReplicaRouter.for_seqrec(params, cfg, n_replicas=n_rep,
+                                          hedge=False, **calm) as router:
+                router.warmup()
+                reset_counts()
+                res, wall = drive(router, hist, window=window)
+                settle(router)
+                jobs = launched_jobs(router)
+                expect_counts(f"router {what}", read_counts(),
+                              pq_topk_fused=jobs)
+                check_untagged(f"router {what}", res, fused_out)
+                router_line(f"scaling K={n_rep}", router, res, wall,
+                            window=window)
+
+    # ---- the durable mutable fabric, K=2 ---------------------------------
+    t0 = time.monotonic()
+    mstate = MutableHeadState.build(params["item_emb"]["codes"], cfg.pq.b,
+                                    device=dev)
+    shadow = mstate.clone()
+    rng = np.random.default_rng(6)
+    mhist = request_stream(cfg, (DURABLE_BATCHES + 20) * MAX_BATCH, seed=7)
+    with tempfile.TemporaryDirectory() as log_dir, \
+            ReplicaRouter.for_seqrec_mutable(
+                params, cfg, mstate, n_replicas=2, k=K, max_batch=MAX_BATCH,
+                log=CatalogueLog(log_dir), hedge=False, eject_after=1,
+                cooldown_ms=20.0, degrade_high=1 << 30, device=dev) as router:
+        router.warmup()
+        print(f"router durable: capacity={mstate.cap} ladder="
+              f"{router.engines[0].ladder} built in "
+              f"{time.monotonic() - t0:.1f}s")
+        reset_counts()
+        res, b = {}, 0
+        while b < DURABLE_BATCHES or router.replicas[1].readmissions == 0:
+            batch = mhist[b * MAX_BATCH:(b + 1) * MAX_BATCH]
+            more, _ = drive(router, batch, base=b * MAX_BATCH)
+            res.update(more)
+            if b < DURABLE_BATCHES:
+                router.apply_mutations(_churn_ops(shadow, rng, CHURN_OPS,
+                                                  cfg.pq.b))
+            if b == CRASH_AT_BATCH:
+                router.crash_replica(1)
+                n_catchup = router.catchup_events
+            if router.replicas[1].readmissions and \
+                    router.catchup_events <= n_catchup:
+                raise AssertionError("durable: replica 1 re-admitted "
+                                     "before it recovered from the log")
+            b += 1
+            if b >= DURABLE_BATCHES + 20:
+                raise AssertionError("durable: replica 1 never re-admitted")
+        t_wait = time.monotonic()
+        while any(rep["lag"] for rep in router.stats()["replicas"].values()):
+            router.pump(block=True, timeout=0.01)
+            if time.monotonic() - t_wait > 30:
+                raise AssertionError("durable: replicas never caught up")
+        settle(router)
+        jobs = launched_jobs(router)
+        expect_counts("router durable K=2", read_counts(),
+                      pq_topk_fused_live=jobs, pq_scores=jobs)
+        writer = router._writer_state
+        for rid in range(2):
+            st = router._replica_states[rid]
+            same = (st.free == writer.free and st.n_rows == writer.n_rows
+                    and torch.equal(st.codes, writer.codes)
+                    and torch.equal(st.live, writer.live)
+                    and all((getattr(st.state, f) is None
+                             and getattr(writer.state, f) is None)
+                            or torch.equal(getattr(st.state, f),
+                                           getattr(writer.state, f))
+                            for f in ARRAY_FIELDS))
+            if not same:
+                raise AssertionError(f"durable: replica {rid}'s catalogue "
+                                     "differs from the writer's")
+        live = writer.live.cpu().numpy()
+        for r in res.values():
+            if r.shed or r.items.shape != (K,) or r.lsn < 0:
+                raise AssertionError(f"durable: request {r.request_id}: {r}")
+        # A final batch per replica against the masked oracle.
+        seen, tries = set(), 0
+        while seen != {0, 1}:
+            lo = 2 * tries * MAX_BATCH
+            batches = [mhist[lo:lo + MAX_BATCH],
+                       mhist[lo + MAX_BATCH:lo + 2 * MAX_BATCH]]
+            got, _ = drive(router, batches[0] + batches[1],
+                           base=10 ** 7 + 2 * tries * MAX_BATCH)
+            for q, hb in enumerate(batches):
+                rows = [got[10 ** 7 + (2 * tries + q) * MAX_BATCH + j]
+                        for j in range(MAX_BATCH)]
+                ov, oi = masked_oracle(params, cfg, writer, hb)
+                for j, r in enumerate(rows):
+                    if r.degraded or not live[r.items].all() or not (
+                            np.array_equal(r.items, oi[j])
+                            and np.array_equal(r.scores, ov[j])):
+                        raise AssertionError(f"durable: final batch on "
+                                             f"replica {r.replica} differs "
+                                             "from the masked oracle")
+                seen |= {r.replica for r in rows}
+            tries += 1
+            if tries > 10:
+                raise AssertionError("durable: a replica served no batch")
+        settle(router)
+        st = router.stats()
+        print(f"router durable K=2: {len(res)} requests over {b} batches, "
+              f"{CHURN_OPS} logged ops between the first {DURABLE_BATCHES}; "
+              f"committed_lsn={int(st['committed_lsn'])} catchup_events="
+              f"{int(st['catchup_events'])} stale_served="
+              f"{int(st['stale_served'])}; replica 1 crashed after batch "
+              f"{CRASH_AT_BATCH}, recovered from the log in "
+              + ", ".join(f"{t:.1f}ms" for t in router.recovery_ms)
+              + ", re-admitted after it, "
+              + ", ".join(f"{t:.1f}ms" for _, t in router.readmit_ms)
+              + " after the crash; both replicas' catalogues equal the "
+              "writer's bit for "
+              f"bit; final batches on replicas 0 and 1 equal the masked "
+              f"oracle; {jobs} jobs = form (d) launches = pq_scores launches")
+    print(f"router phase: {time.monotonic() - t_phase:.1f}s")
 
 
 EB_SRC = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
@@ -1904,8 +2283,9 @@ def main(argv=None) -> int:
     print(f"init: {cfg.name} N={cfg.n_items} d={cfg.d_model} m={cfg.pq.m} "
           f"b={cfg.pq.b} codes={params['item_emb']['codes'].dtype} in "
           f"{time.monotonic() - t0:.1f}s")
-    launches, path_stats = serve_paths(params, cfg, dev)
+    launches, path_stats, fused_out = serve_paths(params, cfg, dev)
     live_rec = mutable_path(params, cfg, dev, n_sms, path_stats)
+    router_phase(params, cfg, dev, fused_out, path_stats)
 
     # ---- every method once, on one full batch ------------------------
     rng = np.random.default_rng(2)

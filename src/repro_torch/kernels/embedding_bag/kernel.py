@@ -8,11 +8,14 @@ with ``ctypes``; nothing is compiled or loaded on import.
 
 :func:`embedding_bag_cuda` checks device, dtype, shape and contiguity,
 raises on what the kernel does not take, launches on the current CUDA
-stream and counts its launches in ``embedding_bag_cuda.launches``.
+stream and counts its launches in ``embedding_bag_cuda.launches``.  The
+first-use build and load and the count's increment hold ``_LOCK``, so
+threads may launch at once.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 from typing import List
 
@@ -25,6 +28,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "embedding_bag.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 _lib = None
+_LOCK = threading.Lock()      # the library's first load; the launch count
 
 
 def nvcc_command(out: Path, nvcc: str = "nvcc") -> List[str]:
@@ -40,12 +44,13 @@ def build() -> Path:
 
 def _load():
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.embedding_bag_launch.argtypes = [p, p, p, p, i, i, i, i, p]
-        lib.embedding_bag_launch.restype = i
-        _lib = lib
+    with _LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.embedding_bag_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+            lib.embedding_bag_launch.restype = i
+            _lib = lib
     return _lib
 
 
@@ -94,7 +99,8 @@ def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"embedding_bag launch failed: CUDA error {err} "
                            f"({torch.cuda.get_device_name()})")
-    embedding_bag_cuda.launches += 1
+    with _LOCK:
+        embedding_bag_cuda.launches += 1
     return out
 
 

@@ -87,8 +87,11 @@
 //   the split index, then a fold of the remaining levels), which is exactly
 //   the reference's tree_sum order (pairs, odd tail appended) for every m
 //   up to 64, and needs 7 partials whatever m is: no 64-entry local arrays.
-// * Launch setup (the shared-memory attribute and the occupancy query) is
-//   done once per (instance, shared-memory size) and cached.
+// * Launch setup is cached per instance under a mutex, so threads on
+//   their own streams may launch at once at different plans: the
+//   shared-memory limit is raised once to the device's maximum (never
+//   lowered between another thread's set and its launch), the occupancy
+//   is read once per shared-memory size.
 //
 // The build uses no fast-math flags, so the results are bit-identical to
 // the plain versions.  Every C entry returns cudaGetLastError() (or the
@@ -98,6 +101,8 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
 
 // The launch plan Python computes (kernel.py: plan_launch); byte offsets
 // into dynamic shared memory.  Outside the anonymous namespace: the C
@@ -129,6 +134,7 @@ constexpr int kGroups = kLaneCols / kGroup;
 constexpr int kCandCap = 64;         // candidates a query's buffer holds
 constexpr int kMaxQB = 4;
 constexpr int kMaxDepth = 8;         // ring stages the wait below spells out
+constexpr int kCacheSizes = 16;      // shared-memory sizes a launch cache holds
 
 enum CodeType { kInt8 = 0, kUint8 = 1, kInt16 = 2, kUint16 = 3, kInt32 = 4 };
 
@@ -872,21 +878,42 @@ pq_topk_fused_kernel(const Args a) {
 }
 
 // ---------------------------------------------------------------------
-// Launch: the shared-memory attribute and the occupancy are set and read
-// once per (instance, shared-memory size), then reused.
+// Launch.  Threads may launch one instance at once, at different plans
+// (QB 4/2/1, with or without live bytes: different shared-memory sizes).
+// So the instance's dynamic shared-memory limit is raised once, to all the
+// device allows a block, and never lowered, and the occupancy is read once
+// per shared-memory size into a small table; both under the instance's
+// mutex.  The launch itself runs outside it.
 
 struct LaunchCache {
-  int smem = -1;
-  int blocks = 0;             // resident blocks on the device
+  std::mutex mu;
+  bool limit_set = false;
+  int n = 0;
+  int smem[kCacheSizes];
+  int blocks[kCacheSizes];    // resident blocks on the device at smem[i]
 };
 
 template <typename K>
-int resident_blocks(K kernel, LaunchCache* cache, int smem) {
-  if (cache->smem == smem) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+int resident_blocks(K kernel, LaunchCache* cache, int smem, int* blocks) {
+  std::lock_guard<std::mutex> lock(cache->mu);
+  for (int i = 0; i < cache->n; ++i)
+    if (cache->smem[i] == smem) {
+      *blocks = cache->blocks[i];
+      return 0;
+    }
+  int dev = 0, sms = 0, per_sm = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && !cache->limit_set) {
+    cudaFuncAttributes attr;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          optin - static_cast<int>(attr.sharedSizeBytes));
+    if (err == cudaSuccess) cache->limit_set = true;
+  }
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
@@ -894,8 +921,12 @@ int resident_blocks(K kernel, LaunchCache* cache, int smem) {
                                                         kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cache->blocks = sms * per_sm;
-  cache->smem = smem;
+  *blocks = sms * per_sm;
+  if (cache->n < kCacheSizes) {
+    cache->smem[cache->n] = smem;
+    cache->blocks[cache->n] = *blocks;
+    ++cache->n;
+  }
   return 0;
 }
 
@@ -905,11 +936,12 @@ int resident_blocks(K kernel, LaunchCache* cache, int smem) {
 template <typename K>
 int launch(K kernel, LaunchCache* cache, const Args& a, int work,
            cudaStream_t stream) {
-  const int rc = resident_blocks(kernel, cache, a.plan.smem);
+  int blocks = 0;
+  const int rc = resident_blocks(kernel, cache, a.plan.smem, &blocks);
   if (rc != 0) return rc;
   const int ny = (a.bq + a.plan.qb - 1) / a.plan.qb;
   if (ny > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  int gx = cache->blocks / ny;
+  int gx = blocks / ny;
   gx = gx < 1 ? 1 : (gx > work ? work : gx);
   kernel<<<dim3(gx, ny), kThreads, a.plan.smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

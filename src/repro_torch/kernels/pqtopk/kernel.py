@@ -23,6 +23,12 @@ counts its launches in ``<wrapper>.launches`` (the fused kernel's 2D-table
 launches in ``pq_topk_fused_cuda.launches_2d``, and its launches with a
 ``live`` mask, in any list form, in ``pq_topk_fused_cuda.launches_live``).
 
+Threads may launch at once, each on its own stream (the replicated
+fabric's workers; ``ctypes`` lets go of the GIL during the call): the
+first-use build and load and every count's increment hold ``_LOCK``, and
+the C side keeps its shared-memory attribute and occupancy cache under a
+mutex of its own.
+
 :func:`plan_launch` is the launch arithmetic, in Python so the CPU tests
 reach it: how many queries a lane scores per lookup (QB), how many code
 rows a ring stage holds, and the shared-memory layout.  The kernels take
@@ -31,6 +37,7 @@ the plan as it is; a shape with no plan that fits raises before launch.
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List
@@ -68,6 +75,7 @@ CODE_TYPES = {torch.int8: 0, torch.uint8: 1, torch.int16: 2,
               torch.uint16: 3, torch.int32: 4}
 
 _lib = None
+_LOCK = threading.Lock()      # the library's first load; the launch counts
 
 
 def _round16(x: int) -> int:
@@ -177,18 +185,24 @@ def build() -> Path:
     return _nvcc.build(SOURCE, BUILD_DIR, "pqtopk")
 
 
+def _count(fn, attr: str = "launches") -> None:
+    with _LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+
+
 def _load():
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        plan = ctypes.POINTER(_PlanC)
-        lib.pq_scores_launch.argtypes = [p, i, p, p, i, i, i, i, plan, p]
-        lib.pq_scores_launch.restype = i
-        lib.pq_topk_fused_launch.argtypes = [p, i, p, p, p, p, p, i, i, i, i,
-                                             i, i, i, i, i, plan, p]
-        lib.pq_topk_fused_launch.restype = i
-        _lib = lib
+    with _LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            plan = ctypes.POINTER(_PlanC)
+            lib.pq_scores_launch.argtypes = [p, i, p, p, i, i, i, i, plan, p]
+            lib.pq_scores_launch.restype = i
+            lib.pq_topk_fused_launch.argtypes = [p, i, p, p, p, p, p, i, i, i,
+                                                 i, i, i, i, i, i, plan, p]
+            lib.pq_topk_fused_launch.restype = i
+            _lib = lib
     return _lib
 
 
@@ -232,7 +246,7 @@ def pq_scores_cuda(codes: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
                                s.data_ptr(), out.data_ptr(), n, m, b, bq,
                                ctypes.byref(plan.as_c()), stream)
     _raise_on(err, "pq_scores")
-    pq_scores_cuda.launches += 1
+    _count(pq_scores_cuda)
     return out
 
 
@@ -299,12 +313,8 @@ def pq_topk_fused_cuda(codes: torch.Tensor, s: torch.Tensor, k: int,
         out_v.data_ptr(), out_i.data_ptr(), n, n_items, m, b, bq, n_slots,
         tile, k, batch_tile, ctypes.byref(plan.as_c()), stream)
     _raise_on(err, "pq_topk_fused")
-    if live is not None:
-        pq_topk_fused_cuda.launches_live += 1
-    elif tile_idx.dim() == 2:
-        pq_topk_fused_cuda.launches_2d += 1
-    else:
-        pq_topk_fused_cuda.launches += 1
+    _count(pq_topk_fused_cuda, "launches_live" if live is not None
+           else "launches_2d" if tile_idx.dim() == 2 else "launches")
     return out_v, out_i
 
 

@@ -7,12 +7,19 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --mutable \
       --churn-steps 8 [--log-dir DIR [--snapshot-every N] [--recover]] \
       --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --replicas 3 \
+      [--chaos] [--no-hedge] --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2 \
+      --mutable --churn-steps 4 --log-dir DIR [--crash-replica-at RID:LSN] \
+      [--staleness-budget N] --device cuda
 
 Weights are random, drawn from a fixed seed.  ``--device`` defaults to
 ``cuda`` and the launcher raises when no card is present.  ``--mutable``
 serves a catalogue that changes between batches (tombstones, inserts,
 re-coded items) through a hot-swapped head, optionally logged to a
-durable write-ahead log with snapshots.
+durable write-ahead log with snapshots.  ``--replicas K`` serves through
+the ``ReplicaRouter`` fabric: K engine replicas on one device, each on
+its own worker thread and CUDA stream.
 """
 from __future__ import annotations
 
@@ -30,11 +37,10 @@ from repro_torch.core.retrieval_head import TOP_ITEMS_METHODS
 from repro_torch.models import seqrec
 from repro_torch.serving.catalogue_log import CatalogueLog
 from repro_torch.serving.engine import Request, RetrievalEngine
-from repro_torch.training.fault_tolerance import (ServeFaultInjector,
+from repro_torch.serving.router import ReplicaRouter
+from repro_torch.training.fault_tolerance import (ReplicaFaultPlan,
+                                                  ServeFaultInjector,
                                                   SimulatedFailure)
-
-_ROUTER = ("the replicated router (serving/router.py) is a later port "
-           "slice (ROADMAP queue A 4)")
 
 
 def _ms(v) -> str:
@@ -63,6 +69,189 @@ def _churn_ops(shadow, rng, n_steps, b):
         apply_op(shadow, op)
         ops.append(op)
     return ops
+
+
+def _print_durable_stats(stats):
+    log_st = stats.get("log")
+    print(f"durable: committed_lsn={int(stats['committed_lsn'])} "
+          f"mutations={int(stats['mutations_applied'])} "
+          f"stale_served={int(stats['stale_served'])} "
+          f"catchup_events={int(stats['catchup_events'])} "
+          f"staleness_budget={int(stats['staleness_budget'])}")
+    if log_st is not None:
+        print(f"log: lsn={int(log_st['lsn'])} "
+              f"bytes={int(log_st['log_bytes'])} "
+              f"fsyncs={int(log_st['n_fsyncs'])} "
+              f"snapshots={int(log_st['n_snapshots'])} "
+              f"latest_snapshot_lsn={int(log_st['latest_snapshot_lsn'])} "
+              f"torn_bytes_dropped={int(log_st['torn_bytes_dropped'])}")
+
+
+def _serve_replicated_mutable(args, params, cfg, dev):
+    """K replicas over ONE durable mutable catalogue: mutation batches
+    commit through the WAL between request batches, replicas catch up by
+    LSN-fenced replay, and the chaos flags exercise replica crash
+    (recover-from-log + gated re-admission) and writer crash (torn record;
+    the fabric is rebuilt from ``CatalogueLog.recover``)."""
+    log = None
+    if args.log_dir:
+        log = CatalogueLog(args.log_dir, snapshot_every=args.snapshot_every)
+    if args.recover:
+        mstate, lsn0 = log.recover(device=dev)
+        print(f"recovered catalogue from {args.log_dir} at lsn {lsn0} "
+              f"(torn bytes dropped: {log.torn_bytes_dropped})")
+    else:
+        mstate = MutableHeadState.build(
+            params["item_emb"]["codes"], cfg.pq.b,
+            backend=cfg.pq.bound_backend,
+            super_factor=cfg.pq.super_factor, device=dev)
+    shadow = mstate.clone()               # the launcher's committed mirror
+    crash_plan = []                       # [(lsn, rid)], ascending
+    for spec in args.crash_replica_at or []:
+        rid, _, lsn = spec.partition(":")
+        crash_plan.append((int(lsn), int(rid)))
+    crash_plan.sort()
+
+    def mk_router(state, the_log):
+        return ReplicaRouter.for_seqrec_mutable(
+            params, cfg, state, n_replicas=args.replicas, k=args.k,
+            max_batch=args.max_batch, calibrate=not args.no_calibrate,
+            log=the_log, hedge=not args.no_hedge,
+            staleness_budget=args.staleness_budget, device=dev)
+
+    router = mk_router(mstate, log)
+    if args.crash_writer_at is not None:
+        log.fail_at_lsn = args.crash_writer_at
+    rng = np.random.default_rng(0)
+    mrng = np.random.default_rng(1)
+    results = []
+    t0 = time.monotonic()
+    i = 0
+    with router:
+        router.warmup()
+        while i < args.requests:
+            hist_len = int(rng.integers(2, cfg.max_seq_len))
+            seq = rng.integers(1, cfg.n_items + 1, hist_len)
+            router.submit(Request(i, seq, k=args.k))
+            i += 1
+            if args.churn_steps and i % args.max_batch == 0:
+                ops = _churn_ops(shadow, mrng, args.churn_steps, cfg.pq.b)
+                try:
+                    committed = router.apply_mutations(ops)
+                except SimulatedFailure as exc:
+                    print(f"chaos: {exc}")
+                    break
+                while crash_plan and committed >= crash_plan[0][0]:
+                    _, rid = crash_plan.pop(0)
+                    print(f"chaos: crashing replica {rid} at "
+                          f"lsn {committed}")
+                    router.crash_replica(rid)
+                router.pump()
+        results += router.drain()
+        if log is not None and not log._crashed:
+            log.sync()                    # clean shutdown: nothing buffered
+        stats = router.stats()
+    if i < args.requests:
+        # Writer died mid-append: stand a NEW fabric up from the durable
+        # log (torn-tail truncation + snapshot + replay) and finish the
+        # stream — the kill-and-recover path, end to end.
+        print("rebuilding the fabric from the durable log ...")
+        log = CatalogueLog(args.log_dir,
+                           snapshot_every=args.snapshot_every)
+        state, lsn = log.recover(device=dev)
+        print(f"recovered at lsn {lsn} "
+              f"(torn bytes dropped: {log.torn_bytes_dropped})")
+        shadow = state.clone()
+        with mk_router(state, log) as router:
+            router.warmup()
+            while i < args.requests:
+                hist_len = int(rng.integers(2, cfg.max_seq_len))
+                seq = rng.integers(1, cfg.n_items + 1, hist_len)
+                router.submit(Request(i, seq, k=args.k))
+                i += 1
+                if args.churn_steps and i % args.max_batch == 0:
+                    router.apply_mutations(
+                        _churn_ops(shadow, mrng, args.churn_steps,
+                                   cfg.pq.b))
+                    router.pump()
+            results += router.drain()
+            log.sync()
+            stats = router.stats()
+    wall = time.monotonic() - t0
+    eng = router.engines[0]
+    print(f"served {len(results)} requests in {wall:.2f}s "
+          f"({len(results) / wall:.1f} req/s) replicas={args.replicas} "
+          f"mutable=True durable={args.log_dir is not None}")
+    print(f"p50={_ms(stats['p50_ms'])} p99={_ms(stats['p99_ms'])} "
+          f"dup_suppressed={stats['duplicates_suppressed']} "
+          f"redispatched={stats['redispatched']} "
+          f"degraded={dict(stats['degraded_results'])}")
+    _print_durable_stats(stats)
+    for rid, rs in stats["replicas"].items():
+        print(f"  replica[{rid}] state={rs['state']} "
+              f"completed={rs['completed']} "
+              f"ejections={rs['ejections']} "
+              f"readmissions={rs['readmissions']} "
+              f"applied_lsn={rs['applied_lsn']} lag={rs['lag']} "
+              f"n_compiles={rs['n_compiles']}")
+    if eng.ladder is not None:
+        print(f"ladder={eng.ladder} (shared across replicas)")
+    return results
+
+
+def _serve_replicated(args, params, cfg, dev):
+    """Drive the ReplicaRouter fabric: K engine replicas behind one
+    submit/pump/drain loop, optionally under a deterministic chaos plan."""
+    fault_plans = None
+    if args.chaos:
+        # Replica 1 dies for a few dispatches (ejection + re-dispatch +
+        # half-open re-admission); replica 2, when present, straggles
+        # (hedging + straggler strikes).  Indices are per-replica dispatch
+        # counters, so the schedule is reproducible under any interleaving.
+        fault_plans = {1: ReplicaFaultPlan(crash_windows=((1, 4),))}
+        if args.replicas > 2:
+            fault_plans[2] = ReplicaFaultPlan(slow_windows=((0, 3),),
+                                              slow_ms=250.0)
+    router = ReplicaRouter.for_seqrec(
+        params, cfg, n_replicas=args.replicas, k=args.k,
+        max_batch=args.max_batch, method=args.method,
+        calibrate=not args.no_calibrate, device=dev,
+        fault_plans=fault_plans, hedge=not args.no_hedge)
+    rng = np.random.default_rng(0)
+    with router:
+        router.warmup()
+        t0 = time.monotonic()
+        for i in range(args.requests):
+            hist_len = int(rng.integers(2, cfg.max_seq_len))
+            seq = rng.integers(1, cfg.n_items + 1, hist_len)
+            router.submit(Request(i, seq, k=args.k))
+            router.pump()
+        results = router.drain()
+        wall = time.monotonic() - t0
+        stats = router.stats()
+    eng = router.engines[0]
+    print(f"served {len(results)} requests in {wall:.2f}s "
+          f"({len(results) / wall:.1f} req/s) replicas={args.replicas} "
+          f"method={eng.method} chaos={args.chaos}")
+    print(f"p50={_ms(stats['p50_ms'])} p99={_ms(stats['p99_ms'])} "
+          f"hedges={stats['hedges']} hedge_wins={stats['hedge_wins']} "
+          f"dup_suppressed={stats['duplicates_suppressed']} "
+          f"redispatched={stats['redispatched']}")
+    print(f"degrade_level={stats['degrade_level']} "
+          f"degrade_events={stats['degrade_events']} "
+          f"recover_events={stats['recover_events']} "
+          f"shed_load={stats['shed_load']} "
+          f"degraded={dict(stats['degraded_results'])}")
+    for rid, rs in stats["replicas"].items():
+        print(f"  replica[{rid}] state={rs['state']} "
+              f"dispatched={rs['dispatched']} completed={rs['completed']} "
+              f"failures={rs['failures']} stragglers={rs['stragglers']} "
+              f"ejections={rs['ejections']} "
+              f"readmissions={rs['readmissions']} "
+              f"n_compiles={rs['n_compiles']}")
+    if eng.ladder is not None:
+        print(f"ladder={eng.ladder} (shared across replicas)")
+    return results
 
 
 def main(argv=None):
@@ -142,18 +331,32 @@ def main(argv=None):
                          "writes half a record and fails; serving goes on "
                          "and a later --recover run replays the log")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="> 1: the replicated router, a later port slice "
-                         "(refused)")
+                    help="> 1 serves through the ReplicaRouter fabric: "
+                         "pipelined dispatch over health-checked engine "
+                         "replicas (one worker thread and CUDA stream "
+                         "each) with hedging and the load-adaptive "
+                         "degradation ladder")
+    ap.add_argument("--chaos", action="store_true",
+                    help="with --replicas: install a deterministic "
+                         "ReplicaFaultPlan (a crash window on replica 1, "
+                         "a straggle window on replica 2 when present)")
+    ap.add_argument("--no-hedge", action="store_true",
+                    help="with --replicas: disable hedged dispatch")
+    ap.add_argument("--staleness-budget", type=int, default=0,
+                    help="with --mutable --replicas: max LSNs a replica may "
+                         "lag the committed catalogue before its results "
+                         "are tagged stale_catalogue and it is "
+                         "deprioritised (and re-admission is gated)")
     ap.add_argument("--crash-replica-at", action="append", default=None,
                     metavar="RID:LSN",
-                    help="replica chaos of the router (refused)")
-    ap.add_argument("--chaos", action="store_true",
-                    help="router fault plan (refused)")
+                    help="chaos, with --mutable --replicas --log-dir: crash "
+                         "replica RID (drop its in-memory catalogue) once "
+                         "the committed LSN reaches LSN; it must recover "
+                         "from the log before the health FSM re-admits it "
+                         "(repeatable)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.replicas > 1 or args.chaos or args.crash_replica_at:
-        raise SystemExit(f"--replicas/--chaos/--crash-replica-at: {_ROUTER}")
     if args.log_dir and not args.mutable:
         raise SystemExit("--log-dir logs catalogue mutations; it needs "
                          "--mutable")
@@ -165,6 +368,20 @@ def main(argv=None):
     if args.crash_writer_at is not None and not args.log_dir:
         raise SystemExit("--crash-writer-at tears a WAL record; it needs "
                          "--log-dir")
+    if args.crash_replica_at and not (args.mutable and args.replicas > 1
+                                      and args.log_dir):
+        raise SystemExit("--crash-replica-at needs --mutable, --replicas "
+                         "> 1 and --log-dir (recovery replays the log)")
+    if args.replicas > 1:
+        if args.fail_at or args.slow_at:
+            raise SystemExit("--fail-at/--slow-at inject inside ONE engine; "
+                             "replica-level chaos is --chaos")
+        if (args.mutable or args.churn_steps) and args.chaos:
+            raise SystemExit("--chaos drives the immutable fabric; durable "
+                             "chaos is --crash-replica-at / "
+                             "--crash-writer-at")
+    elif args.chaos:
+        raise SystemExit("--chaos needs --replicas > 1")
     if args.churn_steps and not args.mutable:
         raise SystemExit("--churn-steps requires --mutable")
     if args.mutable and args.method not in (None, "pqtopk_pruned"):
@@ -188,6 +405,13 @@ def main(argv=None):
     if pq_overrides:
         cfg = replace(cfg, pq=replace(cfg.pq, **pq_overrides))
     params = seqrec.init_seqrec(torch.Generator().manual_seed(0), cfg)
+    if args.replicas > 1:
+        if args.mutable:
+            if cfg.pq is None:
+                raise SystemExit(f"arch {args.arch!r} has no PQ head; "
+                                 "--mutable needs sub-item codes to mutate")
+            return _serve_replicated_mutable(args, params, cfg, dev)
+        return _serve_replicated(args, params, cfg, dev)
     faults = None
     if args.fail_at or args.slow_at:
         faults = ServeFaultInjector(fail_at_batches=tuple(args.fail_at or ()),

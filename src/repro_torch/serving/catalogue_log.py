@@ -36,6 +36,7 @@ from __future__ import annotations
 import json
 import os
 import struct
+import threading
 import zlib
 from typing import BinaryIO, Dict, Iterator, List, Optional, Tuple
 
@@ -148,6 +149,11 @@ class CatalogueLog:
             with open(self.path, "r+b") as f:
                 f.truncate(valid_end)
         self._fh = None
+        # Held by append, sync and close: the replicated fabric syncs from
+        # a replica's worker thread while the caller appends, and an append
+        # landing between sync's flush and its reset of ``_unsynced`` would
+        # otherwise be forgotten (a later sync would skip its flush).
+        self._lock = threading.RLock()
         self._unsynced = 0
         self.n_fsyncs = 0
         self.n_appends = 0
@@ -171,43 +177,47 @@ class CatalogueLog:
         if self._crashed:
             raise RuntimeError("log writer crashed mid-append; reopen the "
                                "log (torn-tail truncation) to continue")
-        lsn = self.lsn + 1
-        payload = encode_op(op)
-        header = _HEADER.pack(_MAGIC, len(payload), lsn)
-        record = header + payload + _CRC.pack(zlib.crc32(header + payload))
-        fh = self._handle()
-        if self.fail_at_lsn is not None and lsn == self.fail_at_lsn:
-            fh.write(record[:max(1, len(record) // 2)])
-            fh.flush()
-            os.fsync(fh.fileno())
-            self._crashed = True
-            raise SimulatedFailure(
-                f"catalogue log writer crashed mid-append at lsn {lsn} "
-                "(torn record on disk)")
-        fh.write(record)
-        self.lsn = lsn
-        self.n_appends += 1
-        self._unsynced += 1
-        if self._unsynced >= self.fsync_every:
-            self.sync()
-        return lsn
+        with self._lock:
+            lsn = self.lsn + 1
+            payload = encode_op(op)
+            header = _HEADER.pack(_MAGIC, len(payload), lsn)
+            record = header + payload + _CRC.pack(
+                zlib.crc32(header + payload))
+            fh = self._handle()
+            if self.fail_at_lsn is not None and lsn == self.fail_at_lsn:
+                fh.write(record[:max(1, len(record) // 2)])
+                fh.flush()
+                os.fsync(fh.fileno())
+                self._crashed = True
+                raise SimulatedFailure(
+                    f"catalogue log writer crashed mid-append at lsn {lsn} "
+                    "(torn record on disk)")
+            fh.write(record)
+            self.lsn = lsn
+            self.n_appends += 1
+            self._unsynced += 1
+            if self._unsynced >= self.fsync_every:
+                self.sync()
+            return lsn
 
     def append_many(self, ops) -> List[int]:
         return [self.append(op) for op in ops]
 
     def sync(self):
-        if self._fh is not None and self._unsynced:
-            self._fh.flush()
-            os.fsync(self._fh.fileno())
-            self.n_fsyncs += 1
-            self._unsynced = 0
+        with self._lock:
+            if self._fh is not None and self._unsynced:
+                self._fh.flush()
+                os.fsync(self._fh.fileno())
+                self.n_fsyncs += 1
+                self._unsynced = 0
 
     def close(self):
-        if self._fh is not None:
-            if not self._crashed:
-                self.sync()
-            self._fh.close()
-            self._fh = None
+        with self._lock:
+            if self._fh is not None:
+                if not self._crashed:
+                    self.sync()
+                self._fh.close()
+                self._fh = None
 
     def __enter__(self):
         return self

@@ -6,6 +6,19 @@ single-device routes of the reference's ``serving/engine.py``, the pruned
 cascade's calibrated slot-budget ladder and rung statistics included, and
 the mutable catalogue's hot-swappable head (:meth:`RetrievalEngine.
 for_seqrec_mutable`, :meth:`RetrievalEngine.swap_head_state`).
+
+**One CUDA stream per engine.**  Several engines may share one card (the
+replicated fabric, ``serving/router.py``, runs each on its own worker
+thread).  An engine on the card queues its batches on a stream of its own
+(:attr:`RetrievalEngine.stream`): the host-to-device copy of a batch, its
+serve function and the copy of its results into pinned host memory, then a
+CUDA event.  :meth:`RetrievalEngine.complete` waits on that event alone, so
+an engine's latency, straggler strikes and hedges measure its own work,
+never another engine's.  Host reads inside a serve function (the pruned
+cascade's rung choice) sync the current stream, which is then the engine's.
+A batch launched from a thread whose current stream is another one first
+makes the engine's stream wait for it, so a catalogue mutation written in
+place on the caller's stream lands before the batch reads it.
 """
 from __future__ import annotations
 
@@ -45,26 +58,58 @@ class Result:
     # A shed request was never scored: past its deadline before dispatch,
     # or its batch exhausted the retry budget.
     shed: bool = False
-    # Why the result may be inexact ("rung_pin": served by the cascade
-    # pinned to its cheapest rung); "" for an exact result.
+    # Every step of the router's load ladder that can change what the
+    # client receives is tagged ("k_cap", "rung_pin", "k_cap+rung_pin",
+    # "load_shed", "stale_catalogue", ...); "" asserts the exact path ran.
     degraded: str = ""
+    # Which replica served this result (-1: a single engine, or shed before
+    # dispatch) and whether it was raced against a hedge re-issue.
+    replica: int = -1
+    hedged: bool = False
+    # The serving replica's applied catalogue LSN at dispatch (-1: an
+    # immutable catalogue).
+    lsn: int = -1
 
 
 class MicroBatcher:
-    """Greedy size batcher with power-of-two padding buckets, so the number
-    of serve variants stays bounded."""
+    """Greedy size/timeout batcher with power-of-two padding buckets, so the
+    number of serve variants stays bounded.
 
-    def __init__(self, max_batch: int = 64):
+    ``max_wait_ms`` is the partial-batch deadline: a batch is :meth:`ready`
+    once it is full or its oldest request has waited ``max_wait_ms`` (the
+    router polls it, so a trickle of requests dispatches instead of waiting
+    for a full bucket; the engine's own ``drain`` always flushes)."""
+
+    def __init__(self, max_batch: int = 64, max_wait_ms: float = 2.0):
         self.max_batch = max_batch
+        self.max_wait_ms = max_wait_ms
         self.queue: collections.deque[Request] = collections.deque()
+        self._enq_t: collections.deque[float] = collections.deque()
 
     def submit(self, req: Request):
         self.queue.append(req)
+        self._enq_t.append(time.monotonic())
+
+    def oldest_wait_ms(self, now: Optional[float] = None) -> float:
+        """How long the head-of-queue request has waited (0.0 when empty)."""
+        if not self._enq_t:
+            return 0.0
+        return ((time.monotonic() if now is None else now)
+                - self._enq_t[0]) * 1e3
+
+    def ready(self, now: Optional[float] = None) -> bool:
+        """True when a batch should dispatch: a full bucket, or the oldest
+        request has out-waited ``max_wait_ms``."""
+        if len(self.queue) >= self.max_batch:
+            return True
+        return bool(self.queue) and self.oldest_wait_ms(now) >= self.max_wait_ms
 
     def next_batch(self) -> List[Request]:
         out = []
         while self.queue and len(out) < self.max_batch:
             out.append(self.queue.popleft())
+            if self._enq_t:
+                self._enq_t.popleft()
         return out
 
     @staticmethod
@@ -90,11 +135,21 @@ class PreparedBatch:
 
 @dataclass
 class InFlightBatch:
-    """One dispatched batch: the device owns ``out`` until
-    :meth:`RetrievalEngine.complete` waits for it."""
+    """One dispatched batch.  On the card ``out`` holds pinned host tensors
+    that the engine's stream fills; ``event`` is recorded on that stream
+    after the copies, and :meth:`RetrievalEngine.complete` waits on it."""
     prep: PreparedBatch
     out: Any
     t0: float
+    event: Optional[Any] = None       # torch.cuda.Event on the card
+    straggler: bool = False           # set by complete()
+
+
+def _to_pinned(t: torch.Tensor) -> torch.Tensor:
+    """Queue a copy of ``t`` into pinned host memory on the current stream."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
 
 
 def _tensor_sig(t: torch.Tensor):
@@ -162,6 +217,12 @@ class RetrievalEngine:
         self._variants: Dict[Tuple[int, int, Optional[str], bool],
                              Callable] = {}
         self.device = resolve_device(device)
+        self.stream = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            # Work queued so far (parameters, a catalogue built on the
+            # caller's stream) lands before anything this engine runs.
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
         self.seq_len = seq_len
         self.k = k
         self.max_k = k if max_k is None else max(max_k, k)
@@ -427,13 +488,20 @@ class RetrievalEngine:
                       np.empty(0, np.float32), lat, timed_out=timed_out,
                       shed=True, degraded=degraded)
 
-    def prepare(self, reqs: List[Request], *, rung_pin: bool = False
+    def prepare(self, reqs: List[Request], *, k_cap: Optional[int] = None,
+                rung_pin: bool = False
                 ) -> Tuple[List[Result], Optional[PreparedBatch]]:
         """Host side of one dispatch: shed expired requests, left-pad the
-        rest into their power-of-two bucket, resolve the serve variant
-        (the rung-pinned one when ``rung_pin`` and the engine has it; its
-        results are tagged ``degraded="rung_pin"``).  Returns (shed
-        results, prepared batch or None)."""
+        rest into their power-of-two bucket (copied to the device on the
+        engine's stream), resolve the serve variant.  Returns (shed
+        results, prepared batch or None).
+
+        ``k_cap`` and ``rung_pin`` are the router's load-ladder knobs: cap
+        the batch k (bucketed into [1, max_k]) below the clients' asks,
+        and route through the rung-pinned serve fn when the engine has
+        one.  Each one that takes effect is tagged into
+        ``PreparedBatch.degraded`` ("k_cap", "rung_pin" or
+        "k_cap+rung_pin"), so every result carries it."""
         batch_index = self._batch_index
         self._batch_index += 1
         now = time.monotonic()
@@ -450,35 +518,71 @@ class RetrievalEngine:
         # Requests in one batch may disagree on k: score once at the batch
         # k and give each request its own prefix (top-k prefixes nest).
         kk = self.batch_k([r.k for r in alive])
+        tags = []
+        if k_cap is not None:
+            capped = MicroBatcher.bucket(max(1, min(k_cap, self.max_k)),
+                                         self.max_k)
+            if capped < kk:
+                kk = capped
+                tags.append("k_cap")
         pinned = rung_pin and self.has_pinned
+        if pinned:
+            tags.append("rung_pin")
         seqs = np.zeros((bucket, self.seq_len), np.int32)
         for i, r in enumerate(alive):
             s = np.asarray(r.payload)[-self.seq_len:]
             seqs[i, -len(s):] = s
+        with torch.cuda.stream(self.stream):    # None (the CPU): a no-op
+            seqs = torch.from_numpy(seqs).to(self.device)
         return results, PreparedBatch(
-            alive, torch.from_numpy(seqs).to(self.device),
-            self._variant(bucket, kk, pinned), kk, batch_index,
-            degraded="rung_pin" if pinned else "")
+            alive, seqs, self._variant(bucket, kk, pinned), kk, batch_index,
+            degraded="+".join(tags))
 
     def launch(self, prep: PreparedBatch) -> InFlightBatch:
-        """Dispatch a prepared batch; on the card the work is queued and
-        :meth:`complete` waits for it.  Injected faults raise here, before
-        dispatch, so the caller's retry loop sees them."""
+        """Dispatch a prepared batch; on the card the serve function and
+        the copy of its results to pinned host memory are queued on the
+        engine's stream, then an event, which :meth:`complete` waits on.
+        Injected faults raise here, before dispatch, so the caller's retry
+        loop sees them."""
         if self.faults is not None:
             self.faults.check(prep.batch_index)
         t0 = time.monotonic()
-        with torch.inference_mode():
+        if self.stream is None:
+            with torch.inference_mode():
+                out = prep.fn(prep.seqs)
+            return InFlightBatch(prep, out, t0)
+        caller = torch.cuda.current_stream(self.device)
+        if caller != self.stream:
+            self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream), torch.inference_mode():
             out = prep.fn(prep.seqs)
-        return InFlightBatch(prep, out, t0)
+            host = tuple(_to_pinned(t) for t in out[:2]) + tuple(out[2:])
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return InFlightBatch(prep, host, t0, event)
+
+    def warm(self, bucket: int, kk: int, pinned: bool = False) -> None:
+        """Resolve the (bucket, k) serve variant and run it once on a batch
+        of padding, on the engine's stream, and wait for it: the first use
+        of a kernel builds and loads its library and fills its launch
+        caches, which a served batch should not pay for.  Touches no
+        statistic."""
+        fn = self._variant(bucket, kk, pinned)
+        with torch.cuda.stream(self.stream), torch.inference_mode():
+            fn(torch.zeros((bucket, self.seq_len), dtype=torch.int32,
+                           device=self.device))
+        if self.stream is not None:
+            self.stream.synchronize()
 
     def complete(self, inflight: InFlightBatch) -> List[Result]:
-        """Wait until the batch's device work has finished, then timestamp
-        it and slice per-request results.  The wait comes first: CUDA
-        launches return before the card is done, and a timestamp taken
-        without it would measure the enqueue."""
+        """Wait until the batch's device work has finished (its own event,
+        not the card), then timestamp it and slice per-request results.
+        The wait comes first: CUDA launches return before the card is
+        done, and a timestamp taken without it would measure the
+        enqueue."""
         prep = inflight.prep
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if inflight.event is not None:
+            inflight.event.synchronize()
         out = inflight.out
         if len(out) == 3:
             # A pruned route with a ladder: the third output is the rung.
@@ -489,7 +593,8 @@ class RetrievalEngine:
             if delay:
                 time.sleep(delay)      # synthetic straggler, lands in elapsed
         now = time.monotonic()
-        self.straggler_monitor.record(prep.batch_index, now - inflight.t0)
+        inflight.straggler = self.straggler_monitor.record(
+            prep.batch_index, now - inflight.t0)
         results: List[Result] = []
         for i, r in enumerate(prep.requests):
             lat = (now - r.arrival) * 1e3
@@ -501,13 +606,14 @@ class RetrievalEngine:
                                   lat, timed_out, degraded=prep.degraded))
         return results
 
-    def run_once(self, *, rung_pin: bool = False) -> List[Result]:
+    def run_once(self, *, k_cap: Optional[int] = None,
+                 rung_pin: bool = False) -> List[Result]:
         """Serve one batch: prepare -> launch (with bounded retry of
         injected failures) -> complete."""
         reqs = self.batcher.next_batch()
         if not reqs:
             return []
-        results, prep = self.prepare(reqs, rung_pin=rung_pin)
+        results, prep = self.prepare(reqs, k_cap=k_cap, rung_pin=rung_pin)
         if prep is None:
             return results
         inflight = None

@@ -1,13 +1,16 @@
-"""Serve-side fault tolerance: injected failures and straggler accounting.
+"""Serve-side fault tolerance: injected failures, replica chaos schedules
+and straggler accounting.
 
 A copy of the serving classes of the reference's
-``training/fault_tolerance.py``, which imports no framework.
+``training/fault_tolerance.py`` (``FailureInjector``,
+``ServeFaultInjector``, ``ReplicaFaultPlan``, ``StragglerMonitor``), which
+imports no framework.
 """
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -16,6 +19,18 @@ log = logging.getLogger("repro_torch.fault")
 
 class SimulatedFailure(RuntimeError):
     """A node failure / preemption injected into a dispatch."""
+
+
+@dataclass
+class FailureInjector:
+    """Deterministically fail at given steps (e.g. from a chaos schedule)."""
+    fail_at_steps: Sequence[int] = ()
+    _fired: set = field(default_factory=set)
+
+    def check(self, step: int):
+        if step in self.fail_at_steps and step not in self._fired:
+            self._fired.add(step)
+            raise SimulatedFailure(f"injected failure at step {step}")
 
 
 @dataclass
@@ -54,6 +69,48 @@ class ServeFaultInjector:
             self._slowed.add(batch_index)
             return self.slow_ms / 1e3
         return 0.0
+
+
+@dataclass
+class ReplicaFaultPlan:
+    """Replica-level chaos schedule for the replicated serving fabric
+    (``serving/router.py``): windows over one replica's *own* dispatch
+    counter during which every dispatch crashes (raises
+    :class:`SimulatedFailure`: a dead or preempted replica) or is slowed by
+    ``slow_ms`` (a straggling replica).  Windows are half-open ``[start,
+    stop)`` dispatch indices, so the i-th dispatch a replica attempts always
+    meets the same fate however the router interleaves replicas.
+
+    The layer above :class:`ServeFaultInjector` (transient per-batch faults
+    inside one engine, retried by the engine's own backoff): a crash window
+    long enough to exhaust the router's patience looks like a dead node and
+    trips the health state machine (ejection, re-dispatch of its in-flight
+    work, half-open probe re-admission once the window has passed)."""
+    crash_windows: Sequence[Tuple[int, int]] = ()
+    slow_windows: Sequence[Tuple[int, int]] = ()
+    slow_ms: float = 0.0
+
+    @staticmethod
+    def _in(windows, idx: int) -> bool:
+        return any(lo <= idx < hi for lo, hi in windows)
+
+    def mode(self, dispatch_index: int) -> str:
+        """Fate of this replica's ``dispatch_index``-th dispatch:
+        ``"crash"`` beats ``"slow"`` where windows overlap."""
+        if self._in(self.crash_windows, dispatch_index):
+            return "crash"
+        if self._in(self.slow_windows, dispatch_index):
+            return "slow"
+        return "ok"
+
+    def check(self, dispatch_index: int) -> float:
+        """Raise on a crashed dispatch; return the extra seconds a slowed
+        dispatch must sleep (0.0 when healthy)."""
+        m = self.mode(dispatch_index)
+        if m == "crash":
+            raise SimulatedFailure(
+                f"injected replica crash at dispatch {dispatch_index}")
+        return self.slow_ms / 1e3 if m == "slow" else 0.0
 
 
 @dataclass

@@ -6,6 +6,7 @@ either package recovers in the other, bit for bit.  Also torn-tail
 truncation, the fallback past a corrupt snapshot, the named error with no
 snapshot, and the ``--mutable`` serve launcher on the CPU."""
 import os
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -179,6 +180,32 @@ def test_torn_tail_is_cut_and_recovery_stops_before_it(tmp_path):
         == 11
 
 
+def test_append_during_another_threads_sync_is_flushed_by_the_next(
+        tmp_path, monkeypatch):
+    """The replicated fabric syncs from a worker thread while the caller
+    appends.  An append that lands while that sync is in its fsync must
+    still count as unsynced, so the next sync puts it on disk."""
+    log = tlog.CatalogueLog(str(tmp_path))
+    log.append(("delete", 1))
+    fsync, appender = os.fsync, []
+
+    def fsync_racing_an_append(fd):
+        if not appender:
+            appender.append(threading.Thread(
+                target=log.append, args=(("delete", 2),)))
+            appender[0].start()
+            appender[0].join(0.2)        # give it the time it needs
+        fsync(fd)
+
+    monkeypatch.setattr(tlog.os, "fsync", fsync_racing_an_append)
+    log.sync()
+    appender[0].join(10.0)
+    assert not appender[0].is_alive() and log.lsn == 2
+    log.sync()
+    assert [lsn for lsn, _ in tlog.CatalogueLog(
+        str(tmp_path), read_only=True).read_ops()] == [1, 2]
+
+
 def test_recover_falls_back_past_a_corrupt_snapshot(tmp_path):
     t = tm.MutableHeadState.build(torch.from_numpy(_codes(7)), B_SUB, TILE)
     rng = np.random.default_rng(8)
@@ -231,9 +258,12 @@ def test_serve_cli_mutable_logs_and_recovers(tmp_path, capsys):
                         "--recover"])
     out = capsys.readouterr().out
     assert "recovered catalogue from" in out and "at lsn 16" in out
-    for bad in (["--replicas", "2"], ["--chaos"],
-                ["--crash-replica-at", "1:4"]):
-        with pytest.raises(SystemExit, match="queue A 4"):
+    for bad, why in ((["--chaos"], "needs --replicas > 1"),
+                     (["--crash-replica-at", "1:4"], "--replicas > 1 and "
+                      "--log-dir"),
+                     (["--replicas", "2", "--chaos"], "immutable fabric"),
+                     (["--replicas", "2", "--fail-at", "1"], "ONE engine")):
+        with pytest.raises(SystemExit, match=why):
             tserve.main(base + bad)
     for bad, why in ((["--method", "pqtopk_fused"], "live-mask"),
                      (["--recover"], "needs --log-dir")):

@@ -491,3 +491,142 @@ def test_embedding_bag_nan_inf_row0(cuda_device, v, d, n_bags, bag, mode,
     w = None if w is None else w.to(cuda_device)
     _bits_equal((eb_ops.embedding_bag(table, idx, w, mode=mode),),
                 (eb_ref.embedding_bag(table, idx, w, mode),))
+
+
+def _in_threads(fns):
+    """Run each fn on a thread of its own; re-raise the first error."""
+    import threading
+    errors, threads = [], []
+    for fn in fns:
+        def run(fn=fn):
+            try:
+                fn()
+            except BaseException as exc:      # re-raised below
+                errors.append(exc)
+        threads.append(threading.Thread(target=run))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads), "a launch thread hung"
+    if errors:
+        raise errors[0]
+
+
+def test_fused_kernel_concurrent_streams_at_different_plans(cuda_device):
+    """Two threads, each on its own stream, launch the fused kernel 200
+    times each at batch sizes whose plans differ (QB 4, 2 and 1, with and
+    without the live bytes: different shared-memory sizes); every output
+    is bit-exact against the plain version and the counts are exact."""
+    n, m, b, tile, k = 50_021, 8, 512, 2048, 16
+    codes, s64 = _inputs(n, m, b, 64, "uint16", seed=21)
+    gc = codes.to(cuda_device)
+    idx = torch.arange(tops.n_tiles(n, tile), dtype=torch.int32,
+                       device=cuda_device)
+    live = (torch.rand(n, generator=torch.Generator().manual_seed(3)) > 0.2
+            ).to(cuda_device)
+    ss = {bq: s64[:bq].contiguous().to(cuda_device) for bq in (64, 2, 1)}
+    plans = {(bq, lv): tkernel.plan_launch(
+        "fused", m=m, b=b, bq=bq, code_bytes=2, tile=tile, live=lv).smem
+        for bq in ss for lv in (False, True)}
+    assert len(set(plans.values())) >= 4           # the race needs sizes
+    want = {(bq, lv): tref.pq_topk_slots(gc, ss[bq], k, idx, n_items=n,
+                                         tile=tile,
+                                         live=live if lv else None)
+            for bq in ss for lv in (False, True)}
+    torch.cuda.synchronize()
+    counts0 = (tkernel.pq_topk_fused_cuda.launches,
+               tkernel.pq_topk_fused_cuda.launches_live)
+    schedules = {0: [(64, False), (1, True), (2, False)],
+                 1: [(2, True), (64, True), (1, False)]}
+    outs = {0: [], 1: []}
+
+    def worker(tid):
+        stream = torch.cuda.Stream(cuda_device)
+        with torch.cuda.stream(stream):
+            for i in range(200):
+                bq, lv = schedules[tid][i % 3]
+                outs[tid].append(((bq, lv), tkernel.pq_topk_fused_cuda(
+                    gc, ss[bq], k, idx, n_items=n, tile=tile,
+                    live=live if lv else None)))
+        stream.synchronize()
+
+    _in_threads([lambda: worker(0), lambda: worker(1)])
+    n_live = sum(schedules[tid][i % 3][1] for tid in (0, 1)
+                 for i in range(200))
+    assert [key for key, _ in outs[0] + outs[1]] == [
+        schedules[tid][i % 3] for tid in (0, 1) for i in range(200)]
+    assert (tkernel.pq_topk_fused_cuda.launches - counts0[0],
+            tkernel.pq_topk_fused_cuda.launches_live - counts0[1]) \
+        == (400 - n_live, n_live)
+    for tid in outs:
+        for key, got in outs[tid]:
+            _bits_equal(got, want[key])
+
+
+def test_embedding_bag_counts_launches_from_two_threads(cuda_device):
+    v, d, n_bags, bag = 5000, 16, 64, 8
+    g = torch.Generator().manual_seed(1)
+    gt, gi, gw = (x.to(cuda_device) for x in (
+        torch.randn((v, d), generator=g),
+        torch.randint(-1, v, (n_bags, bag), generator=g).to(torch.int32),
+        torch.rand((n_bags, bag), generator=g)))
+    want = eb_ref.bag_reduce(gt, gi, gw, mode="sum")
+    torch.cuda.synchronize()
+    before = eb_kernel.embedding_bag_cuda.launches
+    outs = {0: [], 1: []}
+
+    def worker(tid):
+        stream = torch.cuda.Stream(cuda_device)
+        with torch.cuda.stream(stream):
+            for _ in range(200):
+                outs[tid].append(eb_kernel.embedding_bag_cuda(gt, gi, gw,
+                                                              mode="sum"))
+        stream.synchronize()
+
+    _in_threads([lambda: worker(0), lambda: worker(1)])
+    assert eb_kernel.embedding_bag_cuda.launches - before == 400
+    for got in outs[0] + outs[1]:
+        _bits_equal([got], [want])
+
+
+def test_router_on_the_card_matches_the_engine(cuda_device):
+    """Two replicas, each on its worker thread and stream, serve the reduced
+    model's fused route; every result is the single engine's, bit for bit,
+    batch for batch, and the fused kernel ran once per launched job."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.models import seqrec
+    from repro_torch.serving.engine import Request, RetrievalEngine
+    from repro_torch.serving.router import ReplicaRouter
+    cfg = get_reduced("sasrec-recjpq").model
+    params = seqrec.init_seqrec(torch.Generator().manual_seed(0), cfg,
+                                device=cuda_device)
+    rng = np.random.default_rng(0)
+    hists = [rng.integers(1, cfg.n_items + 1, int(rng.integers(2, 16)))
+             for _ in range(128)]
+    eng = RetrievalEngine.for_seqrec(params, cfg, k=5, max_batch=8,
+                                     method="pqtopk_fused",
+                                     device=cuda_device)
+    for i, h in enumerate(hists):
+        eng.submit(Request(i, h, k=5))
+    want = {r.request_id: r for r in eng.drain()}
+    with ReplicaRouter.for_seqrec(params, cfg, n_replicas=2, k=5,
+                                  max_batch=8, method="pqtopk_fused",
+                                  device=cuda_device, hedge=False) as router:
+        router.warmup()
+        before = tkernel.pq_topk_fused_cuda.launches
+        for i, h in enumerate(hists):
+            router.submit(Request(i, h, k=5))
+            if i % 8 == 7:
+                router.pump()
+        got = {r.request_id: r for r in router.drain(timeout_s=120.0)}
+        st = router.stats()
+    assert set(got) == set(want)
+    jobs = sum(rep["completed"] for rep in st["replicas"].values())
+    assert jobs == 16
+    assert tkernel.pq_topk_fused_cuda.launches - before == jobs
+    assert {r.replica for r in got.values()} == {0, 1}
+    for i, w in want.items():
+        assert not got[i].degraded and not got[i].shed
+        np.testing.assert_array_equal(got[i].items, w.items)
+        np.testing.assert_array_equal(got[i].scores, w.scores)
