@@ -18,7 +18,14 @@ d=512, m=8, b=512, uint16 codes; random weights from a fixed seed)
 through ``RetrievalEngine`` with the fused kernel, the scores kernel, the
 plain route and the pruned cascade (batch-any, grouped, and with
 super-tiles of 64), checking every batch against the plain ``pqtopk`` and
-fused routes and each path's kernel launches.  Then the mutable
+fused routes and each path's kernel launches.  Then the item-sharded
+routes on the card (``["cuda:0"] * S``): both kernels at the per-shard
+shapes against their plain versions, every engine path at S = 1, 2 and 4
+bit-identical to its flat engine with each kernel launched once per shard
+per batch, the sharded cascade on the skewed catalogue at S=4 (batch-any,
+grouped, super-tiles) and under the ``live`` mask at the mutable capacity,
+each bit-identical to the flat cascade, and a K=2 fabric of 2-shard fused
+engines.  Then the mutable
 catalogue: the fused kernel's tombstone-masked form (``live``) against
 its plain version, and mutable engines at full width (capacity 2,097,152
 rows; bitmask over 100 batches, range and bitmask with 16 supers over 20)
@@ -1078,7 +1085,7 @@ def serve_paths(params, cfg, dev):
     before and read just after; check the counts and that every batch
     agrees with the plain or fused route.  Returns each path's launch
     counts and engine stats (with its ``req_s``: requests over the wall
-    time of its serve), and the fused engine's results."""
+    time of its serve), and each path's results."""
     import numpy as np
     from repro_torch.serving.engine import RetrievalEngine
     grouped_cfg = replace(cfg, pq=replace(cfg.pq, query_grouping=True))
@@ -1156,7 +1163,7 @@ def serve_paths(params, cfg, dev):
           "pqtopk_pruned engines (batch-any, grouped, super-tiles of "
           f"{HIER_FACTOR}) bit-identical to pqtopk_fused; p99 is near the "
           "slowest batch (a request's latency is its batch's)")
-    return launches, stats, outs["pqtopk_fused"]
+    return launches, stats, outs
 
 
 def live_mask(cap, n_real, tile, seed):
@@ -1455,6 +1462,246 @@ def mutable_path(params, cfg, dev, n_sms, frozen_stats):
     return {"ms": split["kernel"], "plain_ms": plain, "bound_ms": bnd,
             "bound_by": by,
             "launches": launches["pq_topk_fused_live"]}
+
+
+# ---- item-sharded serving (shards on one card) --------------------------
+SHARD_COUNTS = (1, 2, 4)
+SHARD_BATCHES = 20                 # batches of 64 per sharded path
+SKEW_SHARDS, SKEW_FACTOR = 4, 4    # the skewed catalogue's mesh, supers
+
+
+def check_shard_kernels(codes, s, n_sms):
+    """Both pqtopk kernels at the sharded paths' per-shard shapes, bit for
+    bit against their plain versions on the same inputs: the last shard's
+    padded block at S = 2 and 4 (n_local rows), the fused kernel's form
+    (a) at k + pad (the fused route's oversample at the engine's k bucket)
+    and ``pq_scores``; and the pruned form (b) at the sharded state's tile
+    (2,048 + pad at the engine's k_hint), which ``ops.pq_topk_tiles``
+    scores as kernel-sized parts, against the plain version at the whole
+    tile.  Returns ({name: max abs error}, {(S, name): record})."""
+    import torch
+    from repro_torch.distributed.sharding import shard_rows
+    from repro_torch.kernels.pqtopk import kernel, ops, ref
+    from repro_torch.launch.mesh import make_mesh
+    n, m = codes.shape
+    bq, _, b = s.shape
+    err, recs = {"pq_scores": 0.0, "pq_topk_fused": 0.0}, {}
+    for n_shards in (2, 4):
+        last = shard_rows(codes, make_mesh(n_shards, [codes.device] *
+                                           n_shards))[-1]
+        n_local = last.shape[0]
+        pad = n_shards * n_local - n
+        k_local = K_KERNEL + pad
+        tile = 2048
+        idx = torch.arange(ops.n_tiles(n_local, tile), dtype=torch.int32,
+                           device=codes.device)
+        fused = lambda: kernel.pq_topk_fused_cuda(last, s, k_local, idx,
+                                                  n_items=n_local, tile=tile)
+        plain = lambda: ref.pq_topk_slots(last, s, k_local, idx,
+                                          n_items=n_local, tile=tile)
+        err["pq_topk_fused"] = max(err["pq_topk_fused"], compare(
+            f"shard S={n_shards} pq_topk_fused (a)", fused(), plain()))
+        err["pq_scores"] = max(err["pq_scores"], compare(
+            f"shard S={n_shards} pq_scores",
+            (kernel.pq_scores_cuda(last, s),), (ref.pq_scores(last, s),)))
+        big = 2048 + pad
+        nt = ops.n_tiles(n_local, big)
+        sl = torch.tensor([0, 5, nt - 1] + [-1] * 5, dtype=torch.int32,
+                          device=codes.device)
+        tv, ti = ref.pq_topk_slots(last, s, k_local, sl, n_items=n_local,
+                                   tile=big)
+        err["pq_topk_fused"] = max(err["pq_topk_fused"], compare(
+            f"shard S={n_shards} pq_topk_fused (b) tile {big} split "
+            f"{ops.split_factor(big)}",
+            ops.pq_topk_tiles(last, s, k_local, sl, tile=big),
+            ops._merge_slot_winners(tv, ti, k_local)))
+        code_b = codes.element_size()
+        for name, fn, pfn, nbytes in (
+                ("pq_topk_fused", fused, plain,
+                 n_local * m * code_b + bq * m * b * 4
+                 + bq * idx.numel() * k_local * 8),
+                ("pq_scores", lambda: kernel.pq_scores_cuda(last, s),
+                 lambda: ref.pq_scores(last, s),
+                 n_local * m * code_b + bq * m * b * 4 + bq * n_local * 4)):
+            bnd, by, _ = bound_ms(nbytes, bq * n_local * (m - 1),
+                                  bq * n_local * m, n_sms)
+            recs[(n_shards, name)] = rec = {
+                "ms": time_ms(fn, 20, graph=True), "plain_ms": time_ms(pfn, 3),
+                "bound_ms": bnd, "bound_by": by}
+            print(f"kernel {name} shard S={n_shards}: N_local={n_local} "
+                  f"k={k_local if name == 'pq_topk_fused' else '-'} "
+                  f"{rec['ms']:.4f}ms plain {rec['plain_ms']:.4f}ms bound "
+                  f"{bnd:.4f}ms ({by}); bit-exact")
+    torch.cuda.synchronize()
+    return err, recs
+
+
+def identity_head(codes, s):
+    """A head whose sub-id scores ARE ``s``: sub-embeddings the identity per
+    split (d = m * b), phi the flattened S (products by 1 and 0, exact)."""
+    import torch
+    m, b = s.shape[1], s.shape[2]
+    eye = torch.eye(b, device=s.device).expand(m, b, b).contiguous()
+    return {"codes": codes, "sub_emb": eye}, s.reshape(s.shape[0], m * b)
+
+
+def sharded_phase(params, cfg, dev, outs, n_sms):
+    """The item-sharded routes on one card (``["cuda:0"] * S``): the
+    kernels at the per-shard shapes; engines at S = 1, 2 and 4 for every
+    engine path, each over the engine phase's first SHARD_BATCHES batches
+    with the counts at 0 just before and read just after (each kernel
+    once per shard per batch), bit-identical to that path's flat engine;
+    the sharded cascade on the skewed catalogue at S=4 (batch-any,
+    grouped, hierarchical) and under the ``live`` mask at the mutable
+    capacity, each bit-identical to the flat cascade; and a healthy K=2
+    fabric of 2-shard fused engines, bit-identical to the flat fused
+    engine."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pruning, retrieval_head as rh, scoring
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import seqrec
+    from repro_torch.serving.engine import RetrievalEngine
+    from repro_torch.serving.router import ReplicaRouter
+    t_phase = time.monotonic()
+    hist = request_stream(cfg)[:SHARD_BATCHES * MAX_BATCH]
+    grouped_cfg = replace(cfg, pq=replace(cfg.pq, query_grouping=True))
+    super_params, super_cfg = super_model(params, cfg)
+    # (name, method, config, parameters, kernels launched once a shard)
+    paths = [("pqtopk_fused", "pqtopk_fused", cfg, params,
+              ("pq_topk_fused",)),
+             ("pqtopk_kernel", "pqtopk_kernel", cfg, params, ("pq_scores",)),
+             ("pqtopk", "pqtopk", cfg, params, ()),
+             ("pqtopk_pruned", "pqtopk_pruned", cfg, params,
+              ("pq_topk_fused", "pq_scores")),
+             ("pqtopk_pruned_grouped", "pqtopk_pruned", grouped_cfg, params,
+              ("pq_topk_fused_2d",)),
+             ("pqtopk_pruned_super", "pqtopk_pruned", super_cfg,
+              super_params, ("pq_topk_fused", "pq_scores"))]
+    head = params["item_emb"]
+    seqs = torch.from_numpy(left_padded(hist[:MAX_BATCH], cfg.max_seq_len)
+                            ).to(dev)
+    with torch.inference_mode():
+        s = scoring.subid_scores(head["sub_emb"],
+                                 seqrec.sequence_embedding(params, seqs, cfg))
+    err, kernel_recs = check_shard_kernels(head["codes"], s.contiguous(),
+                                           n_sms)
+    launches, lines = {}, {}
+    for n_shards in SHARD_COUNTS:
+        mesh = make_mesh(n_shards, [dev] * n_shards)
+        for name, method, c, p, kernels in paths:
+            eng = RetrievalEngine.for_seqrec(p, c, k=K, max_batch=MAX_BATCH,
+                                             method=method,
+                                             sharded_mesh=mesh, device=dev)
+            serve(eng, request_stream(cfg, MAX_BATCH + 1, seed=1))
+            eng.latencies_ms.clear()
+            eng.rung_counts.clear()
+            reset_counts()
+            got = serve(eng, hist)
+            launches[(n_shards, name)] = counts = read_counts()
+            expect_counts(f"sharded S={n_shards} {name}", counts,
+                          **{kn: n_shards * SHARD_BATCHES for kn in kernels})
+            for rid, r in got.items():
+                w = outs[name][rid]
+                if r.shed or r.degraded or not (
+                        np.array_equal(r.items, w.items)
+                        and np.array_equal(r.scores, w.scores)):
+                    raise AssertionError(f"sharded S={n_shards} {name} "
+                                         f"request {rid} differs from the "
+                                         "flat engine")
+            st = eng.stats()
+            extra = (f" ladder={st['ladder']} rung_counts={st['rung_counts']}"
+                     if "ladder" in st else "")
+            lines[(n_shards, name)] = st
+            print(f"sharded S={n_shards} {name}: served {int(st['count'])} "
+                  f"mRT={st['mRT_ms']:.3f}ms p99={st['p99_ms']:.3f}ms "
+                  f"launches {counts}{extra}; bit-identical to the flat "
+                  "engine")
+            del eng
+    torch.cuda.synchronize()
+
+    # ---- the skewed catalogue at S=4 --------------------------------
+    n, m, b, bq = 1_271_638, 8, 512, MAX_BATCH
+    codes = torch.from_numpy(clustered_codes(n, m, b)).to(dev)
+    mesh = make_mesh(SKEW_SHARDS, [dev] * SKEW_SHARDS)
+    flat = pruning.build_pruned_state(codes, b)
+    for batch, shape, grouped, factor in (
+            ("shared", dict(spread=0.0, power=2), False, 0),
+            ("mixed", dict(spread=0.25, power=3), True, 0),
+            ("shared", dict(spread=0.0, power=2), False, SKEW_FACTOR)):
+        sq = torch.from_numpy(window_scores(bq, m, b, 0, **shape)).to(dev)
+        hp, phi = identity_head(codes, sq)
+        if not torch.equal(rh._subid_scores(hp, phi), sq):
+            raise AssertionError("identity head: S not reproduced")
+        hp = rh.ensure_sharded_pruned_state(hp, mesh, k_hint=K_KERNEL,
+                                            super_factor=factor)
+        pq = replace(cfg.pq, query_grouping=grouped, n_groups=8,
+                     super_factor=factor)
+        t0 = time.perf_counter()
+        v, i, st = rh.top_items_pruned_sharded(hp, phi, K_KERNEL, mesh,
+                                               pq_cfg=pq, return_stats=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        fv, fi = pruning.cascade_topk_ingraph(
+            codes, sq, K_KERNEL, pruning.with_super(flat, factor),
+            query_grouping=grouped, n_groups=8)
+        what = (f"sharded cascade S={SKEW_SHARDS} {batch} "
+                + ("grouped" if grouped else
+                   f"hier factor {factor}" if factor else "batch-any"))
+        if not same_bits((v, i), (fv, fi)):
+            raise AssertionError(f"{what}: differs from the flat cascade")
+        print(f"{what}: n_survived={st['n_survived']}/{st['n_tiles']} "
+              f"n_scored={st['n_scored']} pairs_scored/pairs_union="
+              f"{st['pairs_scored']}/{st['pairs_union']} bounds_computed="
+              f"{st['bounds_computed']} n_super_survived="
+              f"{st['n_super_survived']}/{st['n_super']} max_group="
+              f"{st['max_group_survived']} rung_hit={st['rung_hit']}; "
+              f"{ms:.3f}ms host clock (first call); bit-identical to the "
+              "flat cascade")
+
+    # ---- tombstones at the mutable capacity -------------------------
+    cap = 1 << 21
+    codes_cap = torch.cat([codes, codes.new_zeros((cap - n, m))])
+    live = live_mask(cap, n, 2048, seed=50).to(dev)
+    sq = torch.from_numpy(window_scores(bq, m, b, 1, spread=0.0, power=2)
+                          ).to(dev)
+    hp, phi = identity_head(codes_cap, sq)
+    hp["live"] = live
+    v, i, st = rh.top_items_pruned_sharded(hp, phi, K_KERNEL, mesh,
+                                           return_stats=True)
+    fv, fi = pruning.cascade_topk_ingraph(
+        codes_cap, sq, K_KERNEL,
+        pruning.build_pruned_state_masked(codes_cap, live, b), live=live)
+    if not same_bits((v, i), (fv, fi)):
+        raise AssertionError("sharded live cascade differs from the flat "
+                             "masked cascade")
+    if not bool(live[i[torch.isfinite(v)].long()].all()):
+        raise AssertionError("sharded live cascade served a dead id")
+    print(f"sharded live S={SKEW_SHARDS} cap={cap}: n_survived="
+          f"{st['n_survived']}/{st['n_tiles']} n_scored={st['n_scored']}; "
+          "bit-identical to the flat masked cascade, no dead id")
+
+    # ---- a healthy K=2 fabric of 2-shard fused engines ---------------
+    with ReplicaRouter.for_seqrec(
+            params, cfg, n_replicas=2, k=K, max_batch=MAX_BATCH,
+            method="pqtopk_fused", sharded_mesh=make_mesh(2, [dev] * 2),
+            device=dev, degrade_high=1 << 30) as router:
+        router.warmup()
+        reset_counts()
+        res, wall = drive(router, hist)
+        settle(router)
+        jobs = launched_jobs(router)
+        expect_counts("sharded router K=2 S=2", read_counts(),
+                      pq_topk_fused=2 * jobs)
+        if sorted(res) != list(range(len(hist))):
+            raise AssertionError("sharded router: not one Result per request")
+        if check_untagged("sharded router", res, outs["pqtopk_fused"]) \
+                != len(hist):
+            raise AssertionError("sharded router: results tagged or shed")
+        router_line("sharded K=2 S=2", router, res, wall)
+    print(f"sharded phase: {time.monotonic() - t_phase:.1f}s")
+    return {"launches": launches, "stats": lines, "err": err,
+            "kernels": kernel_recs}
 
 
 # ---- the replicated fabric (serving/router.py) -------------------------
@@ -2283,7 +2530,11 @@ def main(argv=None) -> int:
     print(f"init: {cfg.name} N={cfg.n_items} d={cfg.d_model} m={cfg.pq.m} "
           f"b={cfg.pq.b} codes={params['item_emb']['codes'].dtype} in "
           f"{time.monotonic() - t0:.1f}s")
-    launches, path_stats, fused_out = serve_paths(params, cfg, dev)
+    launches, path_stats, outs = serve_paths(params, cfg, dev)
+    fused_out = outs["pqtopk_fused"]
+    shard = sharded_phase(params, cfg, dev, outs, n_sms)
+    for name, e in shard["err"].items():
+        max_err[name] = max(max_err[name], e)
     live_rec = mutable_path(params, cfg, dev, n_sms, path_stats)
     router_phase(params, cfg, dev, fused_out, path_stats)
 

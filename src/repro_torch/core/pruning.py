@@ -1,7 +1,7 @@
 """Per-tile score upper bounds and the pruned cascade (``pqtopk_pruned``).
 
-The port of the reference's ``core/pruning.py`` (one device: the sharded
-layout is a later slice and raises).  For any item i in tile t,
+The port of the reference's ``core/pruning.py``.  For any item i in tile
+t,
 
     r_i = sum_k S[k, G[i,k]]  <=  sum_k max_{j in C(t,k)} S[k, j] =: ub_t
 
@@ -36,6 +36,13 @@ presence metadata cached per catalogue, survivors compacted on the host
 into a slot list padded with the past-the-end tile): the route the
 single-dispatch cascade is held against; serving does not use it.
 
+**Shard-aligned states** (``build_pruned_state(shards=S)``) tile each of
+S equal row blocks on its own (the catalogue padded with zero-code rows
+to ``S * n_local``), so no tile or super straddles a shard; the sharded
+cascade (``retrieval_head.top_items_pruned_sharded``) seeds each shard
+with :func:`seed_plan` and runs the shards' seed stages in lockstep
+(:func:`run_seed_plans`, one host read per growth stage for all shards).
+
 Presence words are ``int32`` holding the reference's ``uint32`` bit
 patterns (PyTorch gives ``uint32`` few operations).  Every top-k here is
 :func:`repro_torch.core.topk.topk` (ties to the lowest index, as
@@ -55,6 +62,7 @@ import torch.nn.functional as F
 from repro_torch.core import pq as pq_lib
 from repro_torch.core import topk as topk_lib
 from repro_torch.core.scoring import tree_sum
+from repro_torch.distributed.sharding import on_device
 from repro_torch.kernels.pqtopk import ops as kernel_ops
 
 NEG_INF = float("-inf")
@@ -87,9 +95,6 @@ _WORD = 32   # presence bits per packed word
 #: The tensor fields of :class:`PrunedHeadState` (``None`` where unused).
 ARRAY_FIELDS = ("packed", "code_lo", "code_hi", "super_packed", "super_lo",
                 "super_hi")
-
-_SHARD_SLICE = ("the sharded pruned layout (shards > 1) is a later port "
-                "slice and not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -219,9 +224,9 @@ class PrunedHeadState:
     ``"range"``: ``code_lo``/``code_hi`` (T, m) int16.  With a super level
     (``super_factor > 1``, :func:`with_super`) ``super_packed`` (S, m,
     ceil(b/32)) or ``super_lo``/``super_hi`` (S, m) hold each group of
-    ``super_factor`` tiles' OR or hull.  The port serves one device
-    (``shards == 1``); the shard fields are kept so a reference state
-    converts field for field (:mod:`repro_torch.interop`)."""
+    ``super_factor`` tiles' OR or hull.  A shard-aligned state
+    (``shards > 1``) holds ``tiles_per_shard`` tiles of each shard's
+    ``n_local`` rows in turn, and its supers likewise."""
 
     packed: Optional[torch.Tensor]
     tile: int
@@ -295,12 +300,27 @@ def build_pruned_state(codes: torch.Tensor, b: int,
                        shards: int = 1, backend: str = "bitmask",
                        super_factor: int = 0) -> PrunedHeadState:
     """Head-build-time constructor, on ``codes``'s device; ``super_factor >
-    1`` adds the super level (:func:`with_super`)."""
-    if shards > 1:
-        raise NotImplementedError(_SHARD_SLICE)
-    return with_super(build_pruned_state_masked(codes, None, b, tile,
-                                                backend=backend),
-                      super_factor)
+    1`` adds the super level (:func:`with_super`).  ``shards > 1`` pads the
+    catalogue to ``shards * n_local`` rows and tiles each shard's block on
+    its own; the padding rows are zero codes that count as present (the
+    reference's layout: sound for the bounds, and the sharded routes mask
+    ids >= N out of the top-k)."""
+    if shards <= 1:
+        return with_super(build_pruned_state_masked(codes, None, b, tile,
+                                                    backend=backend),
+                          super_factor)
+    n, m = codes.shape
+    n_local = -(-n // shards)
+    codes_p = torch.cat([codes, codes.new_zeros((shards * n_local - n, m))])
+    blocks = [build_pruned_state_masked(codes_p[i * n_local:
+                                                (i + 1) * n_local], None, b,
+                                        tile, backend=backend)
+              for i in range(shards)]
+    cat = {f: torch.cat([getattr(st, f) for st in blocks])
+           for f in ("packed", "code_lo", "code_hi")
+           if getattr(blocks[0], f) is not None}
+    return with_super(replace(blocks[0], n_items=n, shards=shards,
+                              n_local=n_local, **cat), super_factor)
 
 
 def build_pruned_state_masked(codes: torch.Tensor,
@@ -527,10 +547,13 @@ def _tile_rows(tile_ids: torch.Tensor, tile: int, n: int):
 
 
 def _valid(gid: torch.Tensor, safe: torch.Tensor, n: int,
-           live: Optional[torch.Tensor]) -> torch.Tensor:
+           live: Optional[torch.Tensor], limit: int,
+           id_offset: int) -> torch.Tensor:
     """Which of the rows ``gid`` (clamped: ``safe``) a seed may score: those
-    inside the catalogue and, with a tombstone mask, alive."""
-    ok = gid < n
+    inside the codes, whose global id ``id_offset + gid`` is below
+    ``limit`` (a shard's padding rows are not) and, with a tombstone mask,
+    alive."""
+    ok = (gid < n) & (id_offset + gid < limit)
     if live is not None:
         ok &= live[safe].bool()
     return ok
@@ -548,23 +571,113 @@ def _merge_values(vals: torch.Tensor, sc: torch.Tensor, k: int):
     return topk_lib.topk(cand, k)[0]
 
 
-def _seed_stages(score_chunk, order, sizes, k, bq, survival_est,
-                 seed_stab_tol, device):
-    """The seed policy's stages: score each stage's chunk, merge the
-    values, stop once the survival estimate moved by <= ``seed_stab_tol``
-    (read on the host after each growth stage; greedy has one stage)."""
-    vals = _merge_values(torch.full((bq, k), NEG_INF, device=device),
-                         score_chunk(order[..., :sizes[0]]), k)
-    sf = survival_est(vals[:, -1])
-    n_used = sizes[0]
+@dataclass(frozen=True)
+class SeedPlan:
+    """One shard's theta seeding, set up: the seed sizes of its policy, its
+    tile order and the functions that score a chunk of tiles and estimate
+    survival at a theta."""
+    sizes: Tuple[int, ...]
+    order: torch.Tensor
+    score_chunk: object
+    survival_est: object
+    bq: int
+
+
+def seed_plan(codes: torch.Tensor, s: torch.Tensor, bounds: torch.Tensor,
+              k: int, *, tile: int, perquery: bool = False,
+              seed_policy: str = "greedy",
+              seed_tiles: int = DEFAULT_SEED_TILES,
+              seed_max_tiles: int = DEFAULT_SEED_MAX_TILES,
+              n_items: Optional[int] = None, id_offset: int = 0,
+              degenerate: Optional[torch.Tensor] = None,
+              live: Optional[torch.Tensor] = None) -> SeedPlan:
+    """Set up the seed of :func:`theta_seed_ingraph` (batch-shared tiles,
+    scored by :func:`ops.pq_scores`) or, ``perquery``, of
+    :func:`theta_seed_perquery` (each query's own tiles, plain gathers in
+    ``tree_sum`` order).  ``n_items``/``id_offset``: the codes are a
+    shard's rows, the first with global id ``id_offset``; rows whose global
+    id reaches ``n_items`` (default: the codes' rows) are masked out."""
+    n, m = codes.shape
+    bq = s.shape[0]
+    sizes = seed_schedule(seed_policy, seed_tiles, seed_max_tiles, k, tile,
+                          bounds.shape[1])
+    limit = n if n_items is None else n_items
+    if perquery:
+        order = topk_lib.topk(seed_order_key(bounds, degenerate),
+                              sizes[-1])[1].long()               # (B, n_max)
+        s = s.float()
+
+        def score_chunk(tile_ids):
+            gid, safe = _tile_rows(tile_ids, tile, n)            # (B, c, tile)
+            sel = pq_lib.widen(pq_lib.take_rows(codes, safe.reshape(-1))
+                               ).reshape(bq, -1, m)
+            sc = tree_sum([torch.gather(s[:, kk, :], 1, sel[:, :, kk])
+                           for kk in range(m)])
+            return torch.where(_valid(gid, safe, n, live, limit, id_offset
+                                      ).reshape(bq, -1), sc, NEG_INF)
+
+        est = lambda th: _mean(survival_mask_perquery(bounds, th))
+    else:
+        order = topk_lib.topk(seed_order_key(bounds.amax(dim=0), degenerate),
+                              sizes[-1])[1].long()
+
+        def score_chunk(tile_ids):
+            gid, safe = _tile_rows(tile_ids, tile, n)
+            rows = pq_lib.take_rows(codes, safe.reshape(-1)).contiguous()
+            sc = kernel_ops.pq_scores(rows, s)
+            return torch.where(_valid(gid, safe, n, live, limit, id_offset
+                                      ).reshape(-1)[None, :], sc, NEG_INF)
+
+        est = lambda th: _mean(survival_mask(bounds, th))
+    return SeedPlan(sizes, order, score_chunk, est, bq)
+
+
+def _read_flags(flags):
+    """0-d bool tensors (one per shard, maybe on several devices) read to
+    the host in one read."""
+    if len(flags) == 1:
+        return [bool(flags[0])]
+    lead = flags[0].device
+    return torch.stack([f.to(lead) for f in flags]).tolist()
+
+
+def run_seed_plans(plans, k: int,
+                   seed_stab_tol: float = DEFAULT_SEED_STAB_TOL):
+    """Run the shards' seed stages in lockstep -> (thetas, n_seed_used,
+    survival estimates), a list each, one entry per plan.
+
+    Each stage scores each still-growing shard's chunk and merges its k
+    best values; a shard stops once its survival estimate moved by <=
+    ``seed_stab_tol`` (the reference's per-shard ``lax.cond`` on ``done``;
+    greedy has one stage).  The stability flags of all shards are read
+    to the host once per growth stage, so S shards read the host as often
+    as one."""
+    vals, sf, n_used = [], [], []
+    for p in plans:
+        dev = p.order.device
+        with on_device(dev):
+            v = _merge_values(torch.full((p.bq, k), NEG_INF, device=dev),
+                              p.score_chunk(p.order[..., :p.sizes[0]]), k)
+            vals.append(v)
+            sf.append(p.survival_est(v[:, -1]))
+            n_used.append(p.sizes[0])
+    sizes = plans[0].sizes
+    active = list(range(len(plans)))
     for prev, size in zip(sizes, sizes[1:]):
-        vals = _merge_values(vals, score_chunk(order[..., prev:size]), k)
-        sf_new = survival_est(vals[:, -1])
-        stable = bool(torch.abs(sf_new - sf) <= seed_stab_tol)
-        sf, n_used = sf_new, size
-        if stable:
+        if not active:
             break
-    return vals[:, -1], n_used, sf
+        flags = []
+        for i in active:
+            p = plans[i]
+            with on_device(p.order.device):
+                vals[i] = _merge_values(
+                    vals[i], p.score_chunk(p.order[..., prev:size]), k)
+                sf_new = p.survival_est(vals[i][:, -1])
+                flags.append(torch.abs(sf_new - sf[i]) <= seed_stab_tol)
+                sf[i], n_used[i] = sf_new, size
+        stable = _read_flags(flags)
+        active = [i for i, st in zip(active, stable) if not st]
+    return [v[:, -1] for v in vals], n_used, sf
 
 
 def theta_seed_ingraph(codes: torch.Tensor, s: torch.Tensor,
@@ -573,6 +686,7 @@ def theta_seed_ingraph(codes: torch.Tensor, s: torch.Tensor,
                        seed_tiles: int = DEFAULT_SEED_TILES,
                        seed_max_tiles: int = DEFAULT_SEED_MAX_TILES,
                        seed_stab_tol: float = DEFAULT_SEED_STAB_TOL,
+                       n_items: Optional[int] = None, id_offset: int = 0,
                        degenerate: Optional[torch.Tensor] = None,
                        live: Optional[torch.Tensor] = None):
     """Batch-shared theta seeding -> (theta (B,), n_seed_used int,
@@ -584,25 +698,14 @@ def theta_seed_ingraph(codes: torch.Tensor, s: torch.Tensor,
     ``adaptive`` grows the seed set geometrically until the survival
     estimate is stable.  ``live`` (N,) excludes dead rows from the seed
     scores: a dead high-scorer would certify a theta that live items
-    cannot reach, and the cascade would no longer be exact."""
-    n = codes.shape[0]
-    bq = s.shape[0]
-    n_tiles = bounds.shape[1]
-    sizes = seed_schedule(seed_policy, seed_tiles, seed_max_tiles, k, tile,
-                          n_tiles)
-    order = topk_lib.topk(seed_order_key(bounds.amax(dim=0), degenerate),
-                          sizes[-1])[1].long()
-
-    def score_chunk(tile_ids):
-        gid, safe = _tile_rows(tile_ids, tile, n)
-        rows = pq_lib.take_rows(codes, safe.reshape(-1)).contiguous()
-        sc = kernel_ops.pq_scores(rows, s)
-        return torch.where(_valid(gid, safe, n, live).reshape(-1)[None, :],
-                           sc, NEG_INF)
-
-    return _seed_stages(score_chunk, order, sizes, k, bq,
-                        lambda th: _mean(survival_mask(bounds, th)),
-                        seed_stab_tol, s.device)
+    cannot reach, and the cascade would no longer be exact.
+    ``n_items``/``id_offset`` as for :func:`seed_plan`."""
+    (theta,), (n_used,), (sf,) = run_seed_plans([seed_plan(
+        codes, s, bounds, k, tile=tile, seed_policy=seed_policy,
+        seed_tiles=seed_tiles, seed_max_tiles=seed_max_tiles,
+        n_items=n_items, id_offset=id_offset, degenerate=degenerate,
+        live=live)], k, seed_stab_tol)
+    return theta, n_used, sf
 
 
 def survival_mask(bounds: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -623,34 +726,20 @@ def theta_seed_perquery(codes: torch.Tensor, s: torch.Tensor,
                         seed_tiles: int = DEFAULT_SEED_TILES,
                         seed_max_tiles: int = DEFAULT_SEED_MAX_TILES,
                         seed_stab_tol: float = DEFAULT_SEED_STAB_TOL,
+                        n_items: Optional[int] = None, id_offset: int = 0,
                         degenerate: Optional[torch.Tensor] = None,
                         live: Optional[torch.Tensor] = None):
     """Per-query theta seeding: each query scores its OWN most promising
     tiles (plain PyTorch gathers from its S row, in ``tree_sum`` order) ->
     (theta (B,), n_seed_used int, mean per-query survival f32 0-d).
-    ``live`` excludes dead rows, as in :func:`theta_seed_ingraph`."""
-    n, m = codes.shape
-    bq = s.shape[0]
-    n_tiles = bounds.shape[1]
-    sizes = seed_schedule(seed_policy, seed_tiles, seed_max_tiles, k, tile,
-                          n_tiles)
-    order = topk_lib.topk(seed_order_key(bounds, degenerate),
-                          sizes[-1])[1].long()                   # (B, n_max)
-    s = s.float()
-
-    def score_chunk(tile_ids):
-        gid, safe = _tile_rows(tile_ids, tile, n)                # (B, c, tile)
-        sel = pq_lib.widen(pq_lib.take_rows(codes, safe.reshape(-1))
-                           ).reshape(bq, -1, m)
-        sc = tree_sum([torch.gather(s[:, kk, :], 1, sel[:, :, kk])
-                       for kk in range(m)])
-        return torch.where(_valid(gid, safe, n, live).reshape(bq, -1), sc,
-                           NEG_INF)
-
-    return _seed_stages(
-        score_chunk, order, sizes, k, bq,
-        lambda th: _mean(survival_mask_perquery(bounds, th)),
-        seed_stab_tol, s.device)
+    ``live``, ``n_items`` and ``id_offset`` as in
+    :func:`theta_seed_ingraph`."""
+    (theta,), (n_used,), (sf,) = run_seed_plans([seed_plan(
+        codes, s, bounds, k, tile=tile, perquery=True,
+        seed_policy=seed_policy, seed_tiles=seed_tiles,
+        seed_max_tiles=seed_max_tiles, n_items=n_items, id_offset=id_offset,
+        degenerate=degenerate, live=live)], k, seed_stab_tol)
+    return theta, n_used, sf
 
 
 # ---------------------------------------------------------------------------

@@ -6,13 +6,19 @@ by their bits), ties to the lowest index.  :func:`order_key` maps floats
 to integers in that order, and a stable descending sort of the keys gives
 it; ``torch.sort`` on the floats would tie +-0 and put NaN of either sign
 first, and ``torch.topk`` promises no order among equal values.
+
+:func:`merge_local_topk` and :func:`local_then_merge_topk` are the merge
+half of the item-sharded routes: per-shard winners gathered to the mesh's
+lead device in shard order, so ties still go to the lowest global id.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import sharding
 
 NEG_INF = float("-inf")
 
@@ -56,6 +62,34 @@ def tiled_topk(scores: torch.Tensor, k: int, tile: int = 8192,
     cand_i = (ti + base).reshape(b, n_tiles * kk)
     fv, fi = topk(cand_v, k)
     return fv, torch.gather(cand_i, 1, fi.long())
+
+
+def merge_local_topk(local_vals: Sequence[torch.Tensor],
+                     local_ids: Sequence[torch.Tensor], k: int, mesh,
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-shard winners: ``local_vals``/``local_ids`` are each
+    shard's (B, k_local) candidates with GLOBAL ids.  Gathered to the lead
+    device in shard order and ranked once: O(k_local * shards) values and
+    ids, independent of N.  -> (vals (B, k), ids (B, k)) on the lead."""
+    all_v = sharding.all_gather(local_vals, mesh)
+    all_i = sharding.all_gather(local_ids, mesh)
+    fv, fi = topk(all_v, k)
+    return fv, torch.gather(all_i, 1, fi.long())
+
+
+def local_then_merge_topk(scores_local: Sequence[torch.Tensor], k: int,
+                          mesh, offsets: Sequence[int],
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each shard's exact top-k of its (B, N_local) scores (shard ``i``'s
+    first item has global id ``offsets[i]``), then
+    :func:`merge_local_topk`."""
+    vals, ids = [], []
+    for r, off in zip(scores_local, offsets):
+        with sharding.on_device(r.device):
+            v, i = tiled_topk(r, min(k, r.shape[-1]))
+            vals.append(v)
+            ids.append(i + off)
+    return merge_local_topk(vals, ids, k, mesh)
 
 
 def approx_topk_maxblock(scores: torch.Tensor, k: int, oversample: int = 2,

@@ -10,7 +10,8 @@ bias) stays 0-d.  The layouts already agree: dense weights stay
 ``PrunedHeadState``, a dataclass) becomes the port's
 :class:`~repro_torch.core.pruning.PrunedHeadState`, field for field; its
 ``uint32`` presence words are carried as ``int32`` with the same bits, and
-a super level's arrays cross over with the rest.
+a super level's arrays and a shard-aligned layout cross over with the
+rest.
 ``mutable_state_from_jax`` carries a reference ``MutableHeadState`` over
 whole (codes, live mask, pruning metadata and host bookkeeping), so both
 packages can start from one mutable catalogue.
@@ -36,14 +37,10 @@ def _array(a, device):
 
 def pruned_state_from_jax(state: Any, device="cpu") -> PrunedHeadState:
     """The reference's ``PrunedHeadState`` (numpy leaves) -> the port's,
-    super-tile arrays included.  Raises on a sharded state: that layout is
-    a later port slice."""
+    super-tile arrays and a shard-aligned layout (``shards > 1``)
+    included."""
     fields = {f.name: getattr(state, f.name)
               for f in dataclasses.fields(state)}
-    if fields["shards"] != 1:
-        raise NotImplementedError(
-            f"pruned state with shards={fields['shards']}: the sharded "
-            "layout is a later port slice")
     for name in ARRAY_FIELDS:
         if fields[name] is not None:
             fields[name] = _array(fields[name], device)

@@ -121,7 +121,9 @@ class LaunchPlan:
 
 def _layout(qb, chunk, depth, *, m, b, code_bytes, tile, fused, live):
     s_bytes = _round16(qb * m * b * 4)
-    sc_bytes = 2 * qb * tile * 4 if fused else 0
+    # Rounded up: an odd tile at QB=1 would leave the candidate buffers and
+    # the ring off the 16-byte grid the kernel's copies need.
+    sc_bytes = _round16(2 * qb * tile * 4) if fused else 0
     cand_bytes = _round16(CANDS_BYTES) if fused else 0
     codes = _round16(chunk * m * code_bytes + 16)
     stage = codes + (_round16(chunk + 16) if live else 0)

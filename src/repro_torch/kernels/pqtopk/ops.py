@@ -14,6 +14,12 @@ that holds a survivor count the caller has read on the host.  Both take
 the mutable catalogue's ``live`` tombstone mask: dead rows score ``-inf``
 inside the kernel's tile top-k, and :func:`_remap_dead` gives every
 ``-inf`` winner the sentinel id ``N``.
+
+A pruning tile may be longer than the kernel's largest tile (a sharded
+state's tile holds the per-shard top-(k + pad), ``k + pad`` > 2048 at the
+engine's ``max_k``): :func:`pq_topk_tiles` then scores each listed tile
+as ``f`` consecutive slots of ``tile / f`` rows (:func:`split_factor`),
+with the same rows, ids and merge, so the result is the same.
 """
 from __future__ import annotations
 
@@ -130,6 +136,23 @@ def pq_topk(codes: torch.Tensor, s: torch.Tensor, k: int, *,
     return _merge_slot_winners(tv, ti, k)
 
 
+def split_factor(tile: int) -> int:
+    """Fewest equal parts of a ``tile``-row pruning tile that each fit the
+    fused kernel's largest tile (1 when it fits whole)."""
+    return next(f for f in range(1, tile + 1)
+                if tile % f == 0 and tile // f <= _k.MAX_TILE)
+
+
+def _split_slots(tile_idx: torch.Tensor, f: int) -> torch.Tensor:
+    """Each slot ``t`` -> the ``f`` slots ``t*f .. t*f + f - 1`` of a tile
+    ``f`` times shorter (``-1`` -> ``f`` sentinels); slots stay
+    ascending."""
+    sub = tile_idx[..., None] * f + torch.arange(f, dtype=tile_idx.dtype,
+                                                 device=tile_idx.device)
+    sub = torch.where(tile_idx[..., None] < 0, -1, sub)
+    return sub.reshape(tile_idx.shape[:-1] + (-1,))
+
+
 def pq_topk_tiles(codes: torch.Tensor, s: torch.Tensor, k: int,
                   tile_idx: torch.Tensor, *, tile: int = _k.DEFAULT_TILE,
                   batch_tile: int = _k.DEFAULT_BATCH_TILE, live=None):
@@ -152,8 +175,11 @@ def pq_topk_tiles(codes: torch.Tensor, s: torch.Tensor, k: int,
         raise ValueError(f"k={k} > tile={tile}")
     bt = effective_batch_tile(bq, batch_tile) if tile_idx.dim() == 2 else 0
     idx = tile_idx.to(device=s.device, dtype=torch.int32)
-    tv, ti = pq_topk_slots(codes, s, k, idx, n_items=n, tile=tile,
-                           batch_tile=bt, live=live)
+    f = split_factor(tile)
+    if f > 1:
+        idx, tile = _split_slots(idx, f), tile // f
+    tv, ti = pq_topk_slots(codes, s, min(k, tile), idx, n_items=n,
+                           tile=tile, batch_tile=bt, live=live)
     fv, fi = _merge_slot_winners(tv, ti, k)
     if live is not None:
         fv, fi = _remap_dead(fv, fi, n)

@@ -96,19 +96,34 @@ def sequence_embedding(params: Params, item_seq: torch.Tensor,
 
 
 def serve_topk(params: Params, item_seq: torch.Tensor, cfg: SeqRecConfig, *,
-               k: int = 10, method: str = "pqtopk", ladder=None,
-               pin_rung: bool = False, return_rung: bool = False):
+               k: int = 10, method: str = "pqtopk", sharded_mesh=None,
+               ladder=None, pin_rung: bool = False, return_rung: bool = False):
     """Full serving path: backbone -> phi -> scoring -> TopK (Table 3).
     -> (ids (B,k) int32, scores (B,k) f32[, rung]).
 
-    ``ladder``/``pin_rung``/``return_rung`` apply to
+    ``sharded_mesh`` (a ``launch.mesh.ShardMesh``): item-sharded retrieval,
+    shard-local scoring and an O(k x shards) merge on the mesh's lead
+    device.  ``ladder``/``pin_rung``/``return_rung`` apply to
     ``method="pqtopk_pruned"`` only: the cascade's slot budgets, its
-    cheapest-rung degraded mode, and whether to also return the rung taken
-    (the engine tallies it into ``rung_hit_fraction``)."""
+    cheapest-rung degraded mode (flat only), and whether to also return
+    the rung taken (the engine tallies it into ``rung_hit_fraction``)."""
     if method != "pqtopk_pruned" and return_rung:
         raise ValueError("return_rung is only meaningful for the pruned "
                          "cascade (method='pqtopk_pruned')")
+    if pin_rung and sharded_mesh is not None:
+        raise ValueError("pin_rung is not threaded through the sharded "
+                         "cascade; degrade the flat replicas instead")
     phi = sequence_embedding(params, item_seq, cfg)
+    if sharded_mesh is not None:
+        if method == "pqtopk_pruned" and return_rung:
+            vals, ids, stats = retrieval_head.top_items_pruned_sharded(
+                params["item_emb"], phi, k, sharded_mesh, pq_cfg=cfg.pq,
+                ladder=ladder, return_stats=True)
+            return ids, vals, stats["rung_hit"]
+        vals, ids = retrieval_head.top_items_sharded(
+            params["item_emb"], phi, k, sharded_mesh, method=method,
+            pq_cfg=cfg.pq, ladder=ladder)
+        return ids, vals
     out = retrieval_head.top_items(params["item_emb"], phi, k, method=method,
                                    pq_cfg=cfg.pq, ladder=ladder,
                                    pin_rung=pin_rung, return_rung=return_rung)

@@ -246,7 +246,8 @@ class RetrievalEngine:
 
     @classmethod
     def for_seqrec(cls, params, cfg, *, k: int = 10, max_batch: int = 64,
-                   method: Optional[str] = None, device="cuda",
+                   method: Optional[str] = None, sharded_mesh=None,
+                   device="cuda",
                    calibrate: Optional[bool] = None,
                    survival_stats: Optional[Sequence[int]] = None,
                    ladder: Optional[Tuple[int, ...]] = None,
@@ -264,12 +265,24 @@ class RetrievalEngine:
         ``pruning.calibrate_ladder``.  With ``cfg.pq.query_grouping`` the
         observable is the largest per-group count, which the grouped
         ladder escalates on.  An explicit ``ladder`` skips calibration;
-        ``calibrate=False`` serves without one."""
+        ``calibrate=False`` serves without one.
+
+        ``sharded_mesh`` (a ``launch.mesh.ShardMesh`` whose lead device is
+        ``device``) serves the item-sharded route: the pruned state is
+        aligned to the mesh once here, and calibration observes flat
+        counts (rebuilt from a flat state, as the reference's code does)
+        spread evenly over the shards against the per-shard tile count.
+        A sharded engine has no pinned route."""
         from repro_torch.core import pruning, retrieval_head
+        from repro_torch.distributed.sharding import same_device
         from repro_torch.interop import to_device
         from repro_torch.kernels.pqtopk import kernel as pqtopk_kernel
         from repro_torch.models import seqrec as seqrec_lib
         dev = resolve_device(device)
+        if sharded_mesh is not None and not same_device(dev,
+                                                        sharded_mesh.lead):
+            raise ValueError(f"the engine's device {dev} is not the shard "
+                             f"mesh's lead device {sharded_mesh.lead}")
         method = method or getattr(cfg, "serve_method", "pqtopk")
         params = to_device(params, dev)
         # Largest k the route can serve: the catalogue, and for the
@@ -277,25 +290,36 @@ class RetrievalEngine:
         max_k = cfg.n_items
         if method in ("pqtopk_fused", "pqtopk_pruned"):
             max_k = min(max_k, pqtopk_kernel.DEFAULT_TILE)
+        if method == "pqtopk_pruned" and sharded_mesh is not None:
+            # Align the tile layout to the mesh once, so the sharded
+            # cascade never rebuilds its metadata.
+            params = {**params, "item_emb":
+                      retrieval_head.ensure_sharded_pruned_state(
+                          params["item_emb"], sharded_mesh, k_hint=max_k)}
         state = retrieval_head._pruned_state(params["item_emb"])
         if method == "pqtopk_pruned" and ladder is None \
                 and calibrate is not False and state is not None:
             counts = (list(survival_stats) if survival_stats is not None
                       else cls._observe_survival(params, cfg, k=k,
                                                  max_batch=max_batch))
-            ladder = pruning.calibrate_ladder(counts, state.n_tiles, k,
-                                              state.tile)
+            # A sharded state's rungs budget the per-shard tiles.
+            counts = [-(-c // state.shards) for c in counts]
+            ladder = pruning.calibrate_ladder(counts, state.tiles_per_shard,
+                                              k, state.tile)
         with_rung = method == "pqtopk_pruned" and ladder is not None
 
         def serve_fn(seqs, kk):
             return seqrec_lib.serve_topk(params, seqs, cfg, k=kk,
-                                         method=method, ladder=ladder,
+                                         method=method,
+                                         sharded_mesh=sharded_mesh,
+                                         ladder=ladder,
                                          return_rung=with_rung)
 
         # The cascade pinned to its cheapest rung, built only when that
-        # rung is below the exhaustive one.
+        # rung is below the exhaustive one (flat engines only).
         serve_fn_pinned = None
-        if with_rung and (state is None or min(ladder) < state.n_tiles):
+        if with_rung and sharded_mesh is None \
+                and (state is None or min(ladder) < state.n_tiles):
             def serve_fn_pinned(seqs, kk):
                 return seqrec_lib.serve_topk(params, seqs, cfg, k=kk,
                                              method=method, ladder=ladder,
@@ -375,11 +399,18 @@ class RetrievalEngine:
         bounds + theta prefix (no scoring) over ``n_batches`` random
         request batches at 1, 8 and ``max_batch`` queries — the largest
         per-group count when ``cfg.pq.query_grouping`` is on; a mutable
-        head's ``live`` mask is honoured."""
+        head's ``live`` mask is honoured.  A shard-aligned state is
+        observed through a flat state rebuilt from the codes at its tile
+        (the reference's code; its comment speaks of per-shard counts
+        summed), without its super level."""
         from repro_torch.core import pruning, retrieval_head, scoring
         from repro_torch.models import seqrec as seqrec_lib
         head = params["item_emb"]
         state = head["pruned"]
+        if state.shards > 1:
+            state = pruning.build_pruned_state(head["codes"], state.b,
+                                               state.tile,
+                                               backend=state.backend)
         pq = cfg.pq
         seed_kw = retrieval_head._seed_kwargs(pq)
         grouped = pq.query_grouping and pq.n_groups > 1

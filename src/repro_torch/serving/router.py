@@ -49,8 +49,10 @@ replica's stream (``Tensor.record_stream``), so the caching allocator does
 not hand their memory out while batches queued on that stream still read
 it.  ``warmup`` runs each replica's variants once on its worker (the first
 kernel use builds and loads the library), where the reference compiles
-them.  Sharded routes are a later slice (``for_seqrec(sharded_mesh=...)``
-raises).
+them.  ``for_seqrec(sharded_mesh=...)`` gives every replica the same
+shard mesh and the same read-only per-shard blocks of the catalogue;
+sharded replicas have no pinned route, so the load ladder degrades them by
+the k cap alone.
 """
 from __future__ import annotations
 
@@ -79,10 +81,6 @@ HEALTHY, SUSPECT, EJECTED, PROBING = "healthy", "suspect", "ejected", "probing"
 # Longest a replica's warmup may take (the first kernel use builds the
 # library with nvcc) before ``warmup`` raises instead of hanging.
 _WARMUP_TIMEOUT_S = 600.0
-
-_SHARD_SLICE = ("sharded routes are a later port slice (ROADMAP queue A 5); "
-                "build the replicas without sharded_mesh")
-
 
 @dataclass
 class _Job:
@@ -309,21 +307,21 @@ class ReplicaRouter:
         route's slot-budget ladder is calibrated once (on the first
         replica) and shared, so every replica serves the same function —
         which is what makes the healthy-path bit-parity hold across
-        failover."""
+        failover.  ``sharded_mesh`` is passed to every replica (its lead
+        device must be ``device``)."""
         from repro_torch.interop import to_device
-        if sharded_mesh is not None:
-            raise NotImplementedError(_SHARD_SLICE)
         dev = resolve_device(device)
         params = to_device(params, dev)
         first = RetrievalEngine.for_seqrec(
-            params, cfg, k=k, max_batch=max_batch, method=method, device=dev,
-            calibrate=calibrate, survival_stats=survival_stats,
-            ladder=ladder)
+            params, cfg, k=k, max_batch=max_batch, method=method,
+            sharded_mesh=sharded_mesh, device=dev, calibrate=calibrate,
+            survival_stats=survival_stats, ladder=ladder)
         engines = [first]
         for _ in range(n_replicas - 1):
             engines.append(RetrievalEngine.for_seqrec(
                 params, cfg, k=k, max_batch=max_batch, method=method,
-                device=dev, ladder=first.ladder, calibrate=False))
+                sharded_mesh=sharded_mesh, device=dev, ladder=first.ladder,
+                calibrate=False))
         return cls(engines, **router_kw)
 
     @classmethod

@@ -630,3 +630,77 @@ def test_router_on_the_card_matches_the_engine(cuda_device):
         assert not got[i].degraded and not got[i].shed
         np.testing.assert_array_equal(got[i].items, w.items)
         np.testing.assert_array_equal(got[i].scores, w.scores)
+
+
+def _sharded_head(n, m, b, d, seed, device):
+    """A tile-coherent uint16 head (item i's codes near i*b/N) whose lowest
+    eight codes every query of the batch of 64 prefers (so the cascade
+    prunes), on ``device``."""
+    rng = np.random.default_rng(seed)
+    centers = (np.arange(n) / n * b).astype(np.int64)
+    codes = np.clip(centers[:, None] + rng.integers(-2, 3, (n, m)), 0, b - 1)
+    sub = rng.standard_normal((m, b, d // m)).astype(np.float32)
+    sub[:, :8] += 2.0
+    phi = (rng.standard_normal((64, d)) + 1.0).astype(np.float32)
+    return ({"codes": torch.from_numpy(codes.astype(np.uint16)).to(device),
+             "sub_emb": torch.from_numpy(sub).to(device)},
+            torch.from_numpy(phi).to(device))
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_routes_match_flat_routes(cuda_device, n_shards):
+    """Shards on one card (``["cuda:0"] * S``, N = 100,003 dividing by
+    neither): the sharded fused and scores-kernel routes, and the sharded
+    cascade batch-any, grouped and with super-tiles at the engine's
+    k_hint (a 2,048 + pad tile, scored as kernel-sized parts), each
+    bit-identical to the flat fused route; the fused route launches its
+    kernel once per shard."""
+    from repro_torch.configs.base import PQConfig
+    from repro_torch.core import retrieval_head as trh
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(n_shards, ["cuda:0"] * n_shards)
+    params, phi = _sharded_head(100_003, 8, 512, 64, seed=n_shards,
+                                device=cuda_device)
+    fv, fi = trh.top_items(params, phi, 10, method="pqtopk_fused")
+    for method in ("pqtopk_fused", "pqtopk_kernel"):
+        before = (tkernel.pq_topk_fused_cuda.launches,
+                  tkernel.pq_scores_cuda.launches)
+        v, i = trh.top_items_sharded(params, phi, 10, mesh, method=method)
+        _bits_equal((v, i), (fv, fi))
+        fused = tkernel.pq_topk_fused_cuda.launches - before[0]
+        scores = tkernel.pq_scores_cuda.launches - before[1]
+        assert (fused, scores) == ((n_shards, 0) if method == "pqtopk_fused"
+                                   else (0, n_shards))
+    for cfg in (PQConfig(m=8, b=512), PQConfig(m=8, b=512,
+                                               query_grouping=True),
+                PQConfig(m=8, b=512, super_factor=4)):
+        p = trh.ensure_sharded_pruned_state(params, mesh, k_hint=2048,
+                                            super_factor=cfg.super_factor)
+        assert p["pruned"].tile == 2048 + (-100_003) % n_shards
+        v, i, st = trh.top_items_pruned_sharded(p, phi, 10, mesh,
+                                                pq_cfg=cfg, ladder=(4, 8),
+                                                return_stats=True)
+        _bits_equal((v, i), (fv, fi))
+        assert st["n_survived"] < st["n_tiles"], st
+
+
+@pytest.mark.parametrize("tile", [683, 1001, 1025])
+@pytest.mark.parametrize("bq", [1, 2, 5])
+def test_fused_kernel_odd_tiles_match_plain_version(cuda_device, tile, bq):
+    """Odd item tiles (a small catalogue's pruning tile; a sharded state's
+    2,049-row tile scored as three 683-row parts) at every QB, 1D with
+    sentinels and with the live mask: bit-exact against the plain version
+    (the launch plan keeps its buffers on the 16-byte grid)."""
+    codes, s = _inputs(5003, 8, 512, bq, np.uint16, seed=tile + bq)
+    gc, gs = codes.to(cuda_device), s.to(cuda_device)
+    nt = tops.n_tiles(5003, tile)
+    idx = torch.tensor([0, 2, nt - 1, -1], dtype=torch.int32)
+    live = torch.from_numpy(np.random.default_rng(tile).random(5003) > 0.2)
+    for lv in (None, live):
+        got = tops.pq_topk_slots(gc, gs, 16, idx.to(cuda_device),
+                                 n_items=5003, tile=tile,
+                                 live=None if lv is None else
+                                 lv.to(cuda_device))
+        want = tref.pq_topk_slots(codes, s, 16, idx, n_items=5003,
+                                  tile=tile, live=lv)
+        _bits_equal([g.cpu() for g in got], want)

@@ -181,6 +181,22 @@ def test_launch_plan_fits_every_config(arch, m, b, code_bytes, n):
                 scores.blocks_per_sm) == (4, 2048, 4, 1)
 
 
+@pytest.mark.parametrize("tile", [683, 1001, 1025, 2047])
+@pytest.mark.parametrize("bq", [1, 2, 64])
+def test_launch_plan_aligns_odd_tiles(tile, bq):
+    """Tiles that are not multiples of 4 (a small catalogue's pruning tile,
+    a sharded state's tile split into parts): the score buffers are padded
+    to the 16-byte grid, so the candidate buffers and the ring stay on it
+    at every QB (the kernel refuses a plan whose ring is off it)."""
+    for live in (False, True):
+        plan = tkernel.plan_launch("fused", m=8, b=512, bq=bq, code_bytes=2,
+                                   tile=tile, live=live)
+        need = 2 * plan.qb * tile * 4
+        assert 0 <= plan.cand_off - plan.sc_off - need < 16
+        assert plan.cand_off % 16 == 0 and plan.ring_off % 16 == 0
+        assert plan.ring_off - plan.cand_off >= tkernel.CANDS_BYTES
+
+
 @pytest.mark.parametrize("bq,batch_tile,qb", [
     (1, 0, 1), (2, 0, 2), (3, 0, 2), (4, 0, 4), (9, 0, 4), (65, 0, 4),
     (64, 8, 4), (64, 6, 2), (64, 5, 1), (3, 8, 2), (1, 16, 1)])

@@ -270,12 +270,16 @@ def test_survival_counts_match_reference(backend, grouped):
 
 
 def test_later_slices_raise():
-    """The sharded layout is still a later slice (super-tiles are ported:
-    ``tests/test_torch_hierarchical.py``)."""
+    """What the flat cascade still refuses.  The later slices are ported:
+    super-tiles (``tests/test_torch_hierarchical.py``) and the shard-aligned
+    layout (``tests/test_torch_sharded.py``), which builds as the
+    reference's does and crosses ``interop``."""
     jc, js, jst, tc, ts, tst = _states("hot", 24, "bitmask")
     assert tp.build_pruned_state(tc, B_SUB, TILE, super_factor=4).has_super
-    with pytest.raises(NotImplementedError, match="shards"):
-        tp.build_pruned_state(tc, B_SUB, TILE, shards=2)
+    sharded = tp.build_pruned_state(tc, B_SUB, TILE, shards=2)
+    assert (sharded.shards, sharded.n_local) == (2, N // 2)
+    _eq(sharded.packed.numpy(), np.asarray(jp.build_pruned_state(
+        jc, B_SUB, TILE, shards=2).packed).view(np.int32))
     # The tombstone mask is ported (test_torch_mutation.py); a mask of
     # the wrong length is refused.
     with pytest.raises(ValueError, match="live"):
@@ -287,7 +291,7 @@ def test_later_slices_raise():
     from dataclasses import replace
     with pytest.raises(ValueError, match="shards=1"):
         tp.cascade_topk_ingraph(tc, ts, 10, replace(tst, shards=2))
-    with pytest.raises(NotImplementedError, match="shards"):
-        pruned_state_from_jax(replace(jst, shards=2))
+    assert pruned_state_from_jax(jax.tree_util.tree_map(
+        np.asarray, replace(jst, shards=2))).shards == 2
     assert pruned_state_from_jax(jax.tree_util.tree_map(
         np.asarray, jp.with_super(jst, 4))).n_super == 8       # 30 tiles

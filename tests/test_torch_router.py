@@ -451,9 +451,13 @@ def test_all_replicas_ejected_forces_probe_liveness(params):
 
 
 def test_sharded_routes_and_dead_workers_raise(params):
-    with pytest.raises(NotImplementedError, match="A 5"):
+    # Sharded replicas are ported (tests/test_torch_sharded.py); a mesh
+    # whose lead device is not the replicas' device is refused.
+    from repro_torch.launch.mesh import ShardMesh
+    mesh = ShardMesh(["meta"] * 2)
+    with pytest.raises(ValueError, match="lead device"):
         ReplicaRouter.for_seqrec(params, CFG, n_replicas=2, device="cpu",
-                                 sharded_mesh=object())
+                                 sharded_mesh=mesh)
     # A worker that dies on an unexpected error surfaces at the next pump.
     eng = RetrievalEngine(lambda s, k: 1 / 0, seq_len=4, device="cpu")
     with ReplicaRouter([eng]) as router:
