@@ -47,7 +47,15 @@ and the four recsys models (DCN-v2, BST, DIEN, FM) at full width, one at a
 time: ``serve_p99`` logits against the same function on the CPU,
 ``retrieval_cand`` through the fused kernel bit-identical to ``pqtopk``,
 DCN-v2's ``serve_bulk``, and launch counts that show the model paths run
-no embedding bag (phase 3).  Both kernel sources are built at once, one
+no embedding bag (phase 3).  Then training (``train_phase``): the train
+launcher at full width with a failure injected at step 12 and a restart
+from the step-10 checkpoint, the final checkpoint restored bit for bit,
+one step's split (host batch, forward and backward, AdamW) and its
+device profile, one step on the card against the CPU, one step at the
+config's ``train_seq`` shape (4,096 sequences as 128 microbatches), the
+trained weights served through both kernels bit-identical to the plain
+route (20 launches each), gBERT4Rec and the four recsys kinds at full
+width through the launcher, and the end-to-end example.  Both kernel sources are built at once, one
 nvcc each; a pqtopk instance for a width the configs use (m = 2, 4, 6, 8)
 with a stack frame fails the run.  Prints the card's name and power limit,
 the pqtopk launch plans, kernel and per-method timings, a JSON line of
@@ -2071,6 +2079,322 @@ def router_phase(params, cfg, dev, fused_out, path_stats):
     print(f"router phase: {time.monotonic() - t_phase:.1f}s")
 
 
+TRAIN_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 20, 12, 5
+TRAIN_TOL = dict(rtol=1e-5, atol=1e-5)   # card against CPU: the contract
+SERVE_TRAINED_BATCHES = 20
+
+
+class _Tee:
+    """Standard output kept as well as shown (the launchers' lines)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def run_launcher(argv):
+    """``repro_torch.launch.train.main(argv)`` on the card, with its
+    printed lines, its peak device memory (and what was held before),
+    and its wall seconds."""
+    import contextlib
+    import gc
+    import torch
+    from repro_torch.launch import train as train_launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    tee = _Tee(sys.stdout)
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(tee):
+        res = train_launcher.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    return (res, tee.text(), torch.cuda.max_memory_allocated(), held,
+            time.monotonic() - t0)
+
+
+def launcher_line(what, res, peak, held, wall, batch):
+    losses = res["losses"]
+    ms = statistics.median(res["wall_s"]) * 1e3
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        raise AssertionError(f"train {what}: non-finite losses {losses}")
+    print(f"train {what}: {len(losses)} steps of B={batch}, losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, median step {ms:.3f}ms "
+          f"({batch / ms * 1e3:.1f} rows/s), peak "
+          f"{peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} GiB above "
+          f"the {held / 2**30:.3f} GiB held), {wall:.1f}s in all")
+    return ms
+
+
+def profile_step(fn, top=8):
+    """One ``fn()`` under ``torch.profiler``: the device time by kernel
+    (self time, summed over calls), the largest ``top`` and the total."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    if not rows:
+        print("train profile: the profiler saw no device time")
+        return
+    print(f"train profile (forward+backward, B=32, one step): device "
+          f"{total:.3f}ms in {sum(r[1] for r in rows)} kernel launches; "
+          "largest: " + "; ".join(f"{k[:60]} x{c} {ms:.3f}ms"
+                                  for ms, c, k in rows[:top]))
+
+
+def train_phase(dev):
+    """Training on the card (``repro_torch.launch.train``, the train step,
+    the checkpoints):
+
+    1. the launcher at full width (sasrec-recjpq, B=32, 20 steps, a
+       checkpoint every 5, a failure injected at step 12): it must resume
+       from step 10 and finish, its losses finite and the last below the
+       first; the final checkpoint restored into fresh templates equals
+       the final state tensor for tensor; then one step's split (host
+       batch, forward and backward, AdamW update; median of 5);
+    2. one step at B=4 from the trained state on the card and on the CPU
+       (the port's CPU path is the oracle here), loss, grad norm, every
+       parameter and moment within rtol=atol=1e-5;
+    3. one step at the config's ``train_seq`` shape: 4,096 sequences as
+       128 microbatches of 32;
+    4. the trained weights served: 20 batches of 64 through
+       ``pqtopk_fused`` and ``pqtopk_kernel``, bit-identical to the plain
+       ``pqtopk``, launching 20 fused and 0 ``pq_scores``, then 0 and 20;
+    5. gbert4rec-recjpq at full width (10 steps of 32) and each recsys
+       kind at its ``train_batch`` (3 steps) through the launcher;
+    6. the example (``examples/train_sasrec_recjpq.py --steps 100``).
+    The serve check's launch counts are checked on their own; they are
+    not the main path's and do not enter the ``kernels`` line."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.interop import to_device
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import seqrec
+    from repro_torch.training import checkpoint, optimizer, train_loop, tree
+    t_phase = time.monotonic()
+    arch = get_config("sasrec-recjpq")
+    cfg = arch.model
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # ---- 1. the launcher at full width, with a restart ---------------
+        ck = os.path.join(tmp, "sasrec")
+        res, text, peak, held, wall = run_launcher([
+            "--arch", "sasrec-recjpq", "--steps", str(TRAIN_STEPS),
+            "--batch", "32", "--ckpt", ck, "--ckpt-every",
+            str(TRAIN_CKPT_EVERY), "--fail-at", str(TRAIN_FAIL_AT),
+            "--log-every", "1"])
+        resumed = TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+        if f"resumed from step {resumed}\n" not in text \
+                or f"finished {TRAIN_STEPS} steps" not in text:
+            raise AssertionError("train launcher: no resume from step "
+                                 f"{resumed} or no finish line")
+        step_ms = launcher_line("sasrec-recjpq launcher", res, peak, held,
+                                wall, 32)
+        if not res["losses"][-1] < res["losses"][0]:
+            raise AssertionError(f"train: loss did not fall {res['losses']}")
+        params, state = res["params"], res["opt_state"]
+        gen = torch.Generator().manual_seed(0)
+        fresh = seqrec.init_seqrec(gen, cfg, device=dev)
+        mgr = checkpoint.CheckpointManager(ck)
+        out = mgr.restore(TRAIN_STEPS, {
+            "params": fresh, "opt_state": train_loop.init_opt_state(
+                fresh, optimizer.AdamWConfig())})
+        n_leaves = 0
+        for a, b in zip(tree.leaves_with_path(out), tree.leaves_with_path(
+                {"params": params, "opt_state": state})):
+            if a[0] != b[0] or a[1].dtype != b[1].dtype \
+                    or not torch.equal(a[1], b[1]):
+                raise AssertionError(f"restored checkpoint differs at {a[0]}")
+            n_leaves += 1
+        print(f"train checkpoint: step {mgr.latest_step()} restored into "
+              f"fresh templates equals the final state ({n_leaves} tensors, "
+              "bit for bit)")
+        del fresh, out
+
+        # The split of one step (synchronized between the parts).
+        ocfg = optimizer.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                     total_steps=100)
+        data, loss_fn, _ = train_launcher.make_data(arch, 32, device=dev)
+        parts = {"host batch": [], "forward+backward": [], "AdamW update": []}
+        p, s = params, state
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in next(data).items()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, _, grads = train_loop.value_and_grad(loss_fn, p, batch)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            p, s, _ = optimizer.adamw_update(grads, s, p, ocfg,
+                                             frozen=optimizer.default_frozen)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            del grads, batch
+            if i:
+                for k, t in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                    parts[k].append(t * 1e3)
+        split = {k: statistics.median(v) for k, v in parts.items()}
+        total = sum(split.values())
+        profile_step(lambda: train_loop.value_and_grad(loss_fn, p, {
+            k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}))
+        print("train step split (B=32, S=199, 256 negatives; median of 5, "
+              "synchronized): " + ", ".join(f"{k} {v:.3f}ms"
+                                            for k, v in split.items())
+              + f"; sum {total:.3f}ms ({32 / total * 1e3:.1f} seq/s); the "
+              f"launcher's median step {step_ms:.3f}ms")
+        del p, s
+
+        # ---- 2. the card against the CPU, one step at B=4 ----------------
+        data4, _, _ = train_launcher.make_data(arch, 4, device=dev)
+        b4 = next(data4)
+        step = train_loop.make_train_step(loss_fn, ocfg)
+        gp, gs, gm = step(params, state, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in b4.items()})
+        t0 = time.monotonic()
+        cp, cs, cm = step(to_device(params, "cpu"), to_device(state, "cpu"),
+                          {k: torch.from_numpy(v) for k, v in b4.items()})
+        cpu_s = time.monotonic() - t0
+        errs = {k: abs(float(gm[k]) - float(cm[k])) for k in
+                ("loss", "grad_norm", "lr")}
+        worst = 0.0
+        for (path, g), (_, c) in zip(
+                tree.leaves_with_path({"params": gp, "opt_state": gs}),
+                tree.leaves_with_path({"params": cp, "opt_state": cs})):
+            if g.is_floating_point():
+                torch.testing.assert_close(g.cpu(), c, **TRAIN_TOL,
+                                           msg=lambda m: f"{path}: {m}")
+                worst = max(worst, (g.cpu() - c).abs().max().item())
+            elif not torch.equal(g.cpu(), c):
+                raise AssertionError(f"card and CPU differ at {path}")
+        for k in ("loss", "grad_norm", "lr"):
+            torch.testing.assert_close(gm[k].cpu(), cm[k], **TRAIN_TOL)
+        print(f"train card vs CPU (B=4, full width, one step from the "
+              f"trained state; the CPU step took {cpu_s:.1f}s): "
+              + ", ".join(f"{k} abs err {v:.3e}" for k, v in errs.items())
+              + f", largest parameter/moment abs err {worst:.3e}; within "
+              "rtol=atol=1e-5")
+        del gp, gs, cp, cs, data4
+
+        # ---- 3. the config's train_seq shape, accumulated ----------------
+        dims = arch.shape("train_seq").dims
+        gb, ga = dims["global_batch"], dims["global_batch"] // 32
+        t0 = time.monotonic()
+        big, _, _ = train_launcher.make_data(arch, gb, device=dev)
+        t1 = time.monotonic()
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(big).items()}
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        acc = train_loop.make_train_step(loss_fn, ocfg, grad_accum=ga)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        _, _, m = acc(params, state, batch)
+        loss = float(m["loss"])
+        seq_s = time.perf_counter() - t3
+        if loss != loss:
+            raise AssertionError("train_seq: NaN loss")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"train train_seq: {gb} sequences x {dims['seq_len'] - 1} "
+              f"positions x {cfg.n_negatives} negatives as grad_accum={ga} "
+              f"microbatches of {gb // ga}: step {seq_s * 1e3:.1f}ms "
+              f"({gb / seq_s:.1f} seq/s), loss {loss:.4f}, peak "
+              f"{peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} above "
+              f"the {held / 2**30:.3f} held); data {t1 - t0:.1f}s to build, "
+              f"{t2 - t1:.1f}s a batch on the host and its copy")
+        del batch, big, m
+
+        # ---- 4. the trained weights, served --------------------------------
+        rng = np.random.default_rng(11)
+        seqs = [torch.from_numpy(rng.integers(
+            1, cfg.n_items + 1, (MAX_BATCH, cfg.max_seq_len)).astype(
+            np.int32)).to(dev) for _ in range(SERVE_TRAINED_BATCHES)]
+        with torch.inference_mode():
+            want = [seqrec.serve_topk(params, x, cfg, k=K, method="pqtopk")
+                    for x in seqs]
+            for method, kern in (("pqtopk_fused", "pq_topk_fused"),
+                                 ("pqtopk_kernel", "pq_scores")):
+                seqrec.serve_topk(params, seqs[0], cfg, k=K, method=method)
+                torch.cuda.synchronize()
+                reset_counts()
+                got = [seqrec.serve_topk(params, x, cfg, k=K, method=method)
+                       for x in seqs]
+                torch.cuda.synchronize()
+                counts = read_counts()
+                expect_counts(f"serve trained {method}", counts,
+                              **{kern: SERVE_TRAINED_BATCHES})
+                for (gi, gv), (wi, wv) in zip(got, want):
+                    if not (torch.equal(gi, wi) and torch.equal(gv, wv)):
+                        raise AssertionError(f"trained weights: {method} "
+                                             "differs from pqtopk")
+        print(f"train serve: the trained weights, {SERVE_TRAINED_BATCHES} "
+              f"batches of {MAX_BATCH}, pqtopk_fused and pqtopk_kernel "
+              "bit-identical to pqtopk (ids and scores)")
+        del params, state, res, seqs, want, got
+        reset_counts()
+
+        # ---- 5. the other archs through the launcher -----------------------
+        res, _, peak, held, wall = run_launcher([
+            "--arch", "gbert4rec-recjpq", "--steps", "10", "--batch", "32",
+            "--log-every", "1"])
+        launcher_line("gbert4rec-recjpq", res, peak, held, wall, 32)
+        del res
+        for name in RECSYS_ARCHS:
+            spec = get_config(name)
+            n = spec.shape("train_batch").dims["global_batch"]
+            res, _, peak, held, wall = run_launcher([
+                "--arch", name, "--steps", "3", "--batch", str(n),
+                "--log-every", "1"])
+            launcher_line(f"{name} train_batch", res, peak, held, wall, n)
+            del res
+
+        # ---- 6. the example --------------------------------------------------
+        from repro_torch.examples import train_sasrec_recjpq as example
+        gc.collect()
+        torch.cuda.empty_cache()
+        ex = example.main(["--steps", "100", "--ckpt",
+                           os.path.join(tmp, "example"), "--device", "cuda"])
+        if not (ex["losses"][-1] < ex["losses"][0]
+                and 0.0 <= ex["ndcg"] <= 1.0):
+            raise AssertionError("example: loss did not fall or bad NDCG")
+        print(f"train example: codebook {ex['codebook_s']:.1f}s, "
+              f"{ex['seq_per_s']:.1f} seq/s, NDCG@10 model "
+              f"{ex['ndcg']:.4f} popularity {ex['pop_ndcg']:.4f}")
+        del ex
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train phase: {time.monotonic() - t_phase:.1f}s")
+
+
 EB_SRC = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
 RECSYS_ARCHS = ("bst", "dcn-v2", "dien", "fm")
 
@@ -2537,6 +2861,7 @@ def main(argv=None) -> int:
         max_err[name] = max(max_err[name], e)
     live_rec = mutable_path(params, cfg, dev, n_sms, path_stats)
     router_phase(params, cfg, dev, fused_out, path_stats)
+    train_phase(dev)
 
     # ---- every method once, on one full batch ------------------------
     rng = np.random.default_rng(2)

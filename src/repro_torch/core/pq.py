@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import PQConfig
 
@@ -67,10 +68,15 @@ def init_pq_embedding(generator: torch.Generator, pq: PQConfig, n_items: int,
 
 
 def reconstruct(params: Params, ids: torch.Tensor) -> torch.Tensor:
-    """Eq. 2: gather sub-embeddings for ``ids`` and concat. (..., d_model)."""
+    """Eq. 2: gather sub-embeddings for ``ids`` and concat. (..., d_model).
+
+    Gathered by ``F.embedding`` (the same rows as indexing): its backward
+    splits each sub-id's run of duplicate rows, where indexing's sums
+    the run in one warp, so its time would follow the most repeated
+    sub-id."""
     codes = widen(take_rows(params["codes"], ids))              # (..., m)
     sub_emb = params["sub_emb"]                                 # (m, b, d/m)
-    return torch.cat([sub_emb[k][codes[..., k]]
+    return torch.cat([F.embedding(codes[..., k], sub_emb[k])
                       for k in range(sub_emb.shape[0])], dim=-1)
 
 

@@ -95,6 +95,9 @@ _WORD = 32   # presence bits per packed word
 #: The tensor fields of :class:`PrunedHeadState` (``None`` where unused).
 ARRAY_FIELDS = ("packed", "code_lo", "code_hi", "super_packed", "super_lo",
                 "super_hi")
+#: The fields of those that hold presence words: ``int32`` here, the
+#: reference's ``uint32`` bits (what a checkpoint stores).
+UINT32_FIELDS = ("packed", "super_packed")
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,11 @@ a super level's arrays and a shard-aligned layout cross over with the
 rest.
 ``mutable_state_from_jax`` carries a reference ``MutableHeadState`` over
 whole (codes, live mask, pruning metadata and host bookkeeping), so both
-packages can start from one mutable catalogue.
+packages can start from one mutable catalogue.  ``opt_state_from_jax``
+carries an optimizer state over (AdamW's ``{"step", "m", "v"}``,
+Adafactor's ``{"step", "v"}`` with its per-leaf dicts), so both packages
+can run the same steps from the same state; ``bfloat16`` moments keep
+their bits.
 """
 from __future__ import annotations
 
@@ -32,6 +36,9 @@ def _array(a, device):
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.uint16)).view(
+            torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 
@@ -75,6 +82,13 @@ def params_from_jax(tree: Any, device="cpu") -> Any:
     """A reference parameter tree (seqrec or recsys) -> the port's, on
     ``device``."""
     return _convert(tree, device)
+
+
+def opt_state_from_jax(state: Any, device="cpu") -> Any:
+    """A reference optimizer state -> the port's, on ``device``: the
+    step counter as an int32 0-d tensor and the moments in
+    ``params_from_jax``'s tree (the pruning metadata's moments included)."""
+    return _convert(state, device)
 
 
 def to_device(tree: Any, device) -> Any:

@@ -1,15 +1,15 @@
 """RecSys CTR/retrieval models: DCN-v2, BST, DIEN (AUGRU), FM — the
-serving half of the reference's ``models/recsys.py``.
+reference's ``models/recsys.py``: the click loss and the serving paths.
 
 All four share the embedding substrate (:mod:`.embedding`) and a PQ item
 catalogue for the ``retrieval_cand`` path, where the user-side query is
 scored against the catalogue with PQTopK (:func:`retrieve_topk`).  The
 reference's sharding constraints are no-ops without a mesh and are left
-out; its training loss and abstract (shape-only) init are later slices.
+out; its abstract (shape-only) init belongs to the dry run.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +19,7 @@ from repro_torch.configs.base import AttentionConfig, RecsysConfig
 from repro_torch.core import retrieval_head
 from repro_torch.interop import to_device
 from repro_torch.models import attention as attn_lib, embedding, layers
+from repro_torch.training.losses import bce_with_logits
 
 Params = Dict[str, Any]
 KINDS = ("dcn", "bst", "dien", "fm")
@@ -206,6 +207,14 @@ def ctr_logits(params: Params, batch: Dict[str, torch.Tensor],
             lin = lin + w[batch["sparse"][:, i]]
         return lin + pairwise
     raise ValueError(cfg.kind)
+
+
+def ctr_loss(params: Params, batch: Dict[str, torch.Tensor],
+             cfg: RecsysConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean binary cross-entropy of the click logits."""
+    loss = bce_with_logits(ctr_logits(params, batch, cfg).float(),
+                           batch["label"].float())
+    return loss, {"bce": loss}
 
 
 def _bst_tokens(params: Params, seq: torch.Tensor,

@@ -1,14 +1,18 @@
-"""SASRec / gBERT4Rec backbones with the RecJPQ item layer — the serving
-half of the reference's ``models/seqrec.py``.
+"""SASRec / gBERT4Rec backbones with the RecJPQ item layer — the
+reference's ``models/seqrec.py`` (its abstract, shape-only init aside).
 
 Item id 0 is padding; real items are 1..n_items.  The PQ embedding is
 shared between the input layer and the scoring head (as in RecJPQ).
+Training uses gBCE with uniform negative sampling [gSASRec, RecSys'23] so
+large catalogues are trainable; serving scores the full catalogue through
+any of the paper's scoring algorithms.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import AttentionConfig, SeqRecConfig
 from repro_torch.core import retrieval_head
@@ -78,6 +82,43 @@ def seqrec_hidden(params: Params, item_seq: torch.Tensor, cfg: SeqRecConfig,
     x = _embed_seq(params, item_seq)
     x = x + params["pos_emb"]["table"][None, :s].to(x.dtype)
     return _encode(params, x, cfg, causal=cfg.backbone == "sasrec")
+
+
+# ---------------------------------------------------------------------------
+# training: gBCE with uniform negatives
+# ---------------------------------------------------------------------------
+
+def gbce_loss(pos_scores: torch.Tensor, neg_scores: torch.Tensor,
+              mask: torch.Tensor, n_items: int, n_negatives: int,
+              t: float) -> torch.Tensor:
+    """Generalised BCE [gSASRec].  beta = alpha*(t*(1-1/alpha)+1/alpha),
+    sigma^beta(s+) applied via logits: log(sigma^beta(s)) = beta*logsigmoid(s)."""
+    alpha = n_negatives / max(n_items - 1, 1)
+    beta = alpha * (t * (1.0 - 1.0 / alpha) + 1.0 / alpha)
+    pos = beta * F.logsigmoid(pos_scores)                         # (B, S)
+    neg = F.logsigmoid(-neg_scores).sum(-1)                       # (B, S)
+    per_pos = -(pos + neg)
+    denom = mask.sum().clamp(min=1.0)
+    return (per_pos * mask).sum() / denom
+
+
+def seqrec_loss(params: Params, batch: Dict[str, torch.Tensor],
+                cfg: SeqRecConfig) -> Tuple[torch.Tensor,
+                                            Dict[str, torch.Tensor]]:
+    """batch: input_seq (B,S), targets (B,S), negatives (B,S,n_neg) — all
+    item ids (0 pad).  SASRec: next-item at every position; BERT4Rec: the
+    data pipeline pre-masks inputs and sets targets only at masked slots
+    (so ``mask_emb`` takes no gradient here, as in the reference)."""
+    hidden = seqrec_hidden(params, batch["input_seq"], cfg).float()
+    emb = params["item_emb"]
+    pos_emb = retrieval_head.embed(emb, batch["targets"]).float()
+    neg_emb = retrieval_head.embed(emb, batch["negatives"]).float()
+    pos_scores = torch.einsum("bsd,bsd->bs", hidden, pos_emb)
+    neg_scores = torch.einsum("bsd,bsnd->bsn", hidden, neg_emb)
+    mask = (batch["targets"] != 0).float()
+    loss = gbce_loss(pos_scores, neg_scores, mask, cfg.n_items,
+                     cfg.n_negatives, cfg.gbce_t)
+    return loss, {"nll": loss}
 
 
 def sequence_embedding(params: Params, item_seq: torch.Tensor,

@@ -258,7 +258,8 @@ class CatalogueLog:
             return None
 
     def _snap_mgr(self) -> CheckpointManager:
-        return CheckpointManager(self.snap_dir, keep=self.keep_snapshots)
+        return CheckpointManager(self.snap_dir, keep=self.keep_snapshots,
+                                 async_save=False)
 
     def snapshot(self, mstate: MutableHeadState) -> int:
         """Persist the catalogue keyed by the current LSN.  The freelist is

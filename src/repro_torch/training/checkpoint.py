@@ -1,17 +1,29 @@
-"""Checksummed step checkpoints of flat numpy dicts: the part of the
-reference's ``training/checkpoint.py`` that the catalogue log uses.
+"""Checkpointing: atomic step directories, keep-last-k, an async save
+thread and checksummed restores — the reference's
+``training/checkpoint.py`` for named trees of tensors (parameters,
+optimizer state) and of numpy arrays (the catalogue log's snapshots).
 
 The on-disk format is the reference's, so either package reads what the
 other wrote::
 
-    <directory>/step_%010d/<group>.npz     one npz per named group
+    <directory>/step_%010d/<group>.npz     one npz per named tree
     <directory>/step_%010d/manifest.json   shapes, dtypes, CRC32 per npz
 
+A tree's leaves are stored under the reference's keys: the leaf's path
+(``training.tree.path_str``, in the reference's leaf order) with ``/``
+replaced by ``|``, e.g. ``m|item_emb|codes`` or
+``m|item_emb|pruned|packed``.  The pruning metadata's presence words,
+which the port carries as int32, are written as the reference's uint32
+and restored to int32 with the same bits; ``bfloat16`` leaves are written
+as the reference writes them (2-byte void, ``"bfloat16"`` in the
+manifest).
+
 A step is written into a temporary directory and published by one atomic
-rename, so a crash mid-save never damages an older step.  Every npz's
-CRC32 is checked before numpy parses it; :meth:`CheckpointManager.
-restore_latest` falls back past corrupt steps.  Saves are synchronous.
-Checkpoints of model parameters and optimizer state come with training.
+rename, so a crash mid-save never damages an older step.  ``save`` copies
+every leaf to host numpy on the caller's thread (a CUDA tensor's copy
+waits for the work that produces it), so the writer thread touches its
+own numpy copies only.  Every npz's CRC32 is checked before numpy parses it;
+:meth:`CheckpointManager.restore_latest` falls back past corrupt steps.
 """
 from __future__ import annotations
 
@@ -22,11 +34,18 @@ import threading
 import time
 import zipfile
 import zlib
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.core.pruning import UINT32_FIELDS
+from repro_torch.training import tree as tree_lib
 
 Flat = Dict[str, np.ndarray]
+
+_SEP = "|"
+_BF16 = np.dtype("V2")          # how numpy stores a bfloat16 array's bytes
 
 
 class CorruptCheckpointError(RuntimeError):
@@ -45,13 +64,58 @@ def _file_crc32(path: str) -> int:
             crc = zlib.crc32(chunk, crc)
 
 
-class CheckpointManager:
-    """Steps of named flat dicts under ``directory``, the newest ``keep``
-    kept (``keep <= 0`` keeps all)."""
+def _key(path) -> str:
+    return tree_lib.path_str(path).replace("/", _SEP)
 
-    def __init__(self, directory: str, keep: int = 3):
+
+def _to_host(leaf, presence: bool = False) -> np.ndarray:
+    """A copy of ``leaf`` in host memory (a copy even of a CPU tensor or
+    array, so the caller may change it while a writer thread runs); int32
+    presence words (``presence``) as the reference's uint32."""
+    if not isinstance(leaf, torch.Tensor):
+        return np.array(leaf)
+    t = leaf.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_BF16)
+    arr = t.numpy()
+    if presence and arr.dtype == np.int32:
+        arr = arr.view(np.uint32)
+    return arr
+
+
+def _flatten(tree: Any) -> Flat:
+    return {_key(path): _to_host(leaf, owner is not None
+                                 and path[-1] in UINT32_FIELDS)
+            for path, leaf, owner in tree_lib.walk(tree)}
+
+
+def _from_host(arr: np.ndarray, template) -> Any:
+    """A stored array as its template's type: numpy cast to its dtype, or a
+    tensor of its dtype on its device."""
+    if not isinstance(template, torch.Tensor):
+        return np.asarray(arr, np.asarray(template).dtype)
+    if template.dtype == torch.bfloat16:
+        if arr.dtype != _BF16:
+            return torch.from_numpy(np.asarray(arr, np.float32)).to(
+                torch.bfloat16).to(template.device)
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        return t.view(torch.bfloat16).to(template.device)
+    if template.dtype == torch.int32 and arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    want = torch.empty((), dtype=template.dtype).numpy().dtype
+    return torch.from_numpy(np.array(arr, want)).to(template.device)
+
+
+class CheckpointManager:
+    """Steps of named trees under ``directory``, the newest ``keep`` kept
+    (``keep <= 0`` keeps all)."""
+
+    def __init__(self, directory: str, keep: int = 3,
+                 async_save: bool = True):
         self.directory = directory
         self.keep = keep
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
 
     def _step_dir(self, step: int) -> str:
@@ -59,9 +123,28 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, groups: Dict[str, Flat]) -> None:
-        """Write ``groups`` (e.g. ``{"catalogue": {"codes": ..., ...}}``) as
-        step ``step`` and publish it atomically, then drop old steps."""
+    def save(self, step: int, trees: Dict[str, Any], *,
+             block: bool = False) -> None:
+        """Write named trees (e.g. ``{"params": ..., "opt_state": ...}``, or
+        ``{"catalogue": {"codes": ..., ...}}``) as step ``step``, publish
+        it atomically and drop old steps: on a writer thread when the
+        manager saves asynchronously and ``block`` is False (``wait()``
+        joins it), else before returning."""
+        host = {name: _flatten(t) for name, t in trees.items()}
+        self.wait()   # drain any in-flight async save first
+        if self.async_save and not block:
+            self._thread = threading.Thread(
+                target=self._write, args=(step, host), daemon=True)
+            self._thread.start()
+        else:
+            self._write(step, host)
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _write(self, step: int, host: Dict[str, Flat]) -> None:
         final = self._step_dir(step)
         tmp = final + f".tmp{os.getpid()}-{threading.get_ident()}"
         if os.path.exists(tmp):
@@ -69,12 +152,12 @@ class CheckpointManager:
         os.makedirs(tmp)
         manifest = {"step": step, "time": time.time(), "groups": {},
                     "checksums": {}}
-        for name, flat in groups.items():
-            flat = {k: np.asarray(v) for k, v in flat.items()}
+        for name, flat in host.items():
             fname = f"{name}.npz"
             np.savez(os.path.join(tmp, fname), **flat)
             manifest["groups"][name] = {
-                k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                k: {"shape": list(v.shape), "dtype": (
+                    "bfloat16" if v.dtype == _BF16 else str(v.dtype))}
                 for k, v in flat.items()}
             # CRC over the bytes as written; restore re-hashes them before
             # numpy parses the archive.
@@ -131,14 +214,19 @@ class CheckpointManager:
                     return False
         return True
 
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
     def valid_steps(self) -> List[int]:
         return [s for s in self.all_steps() if self.validate_step(s)]
 
-    def restore_latest(self, templates: Dict[str, Flat]
-                       ) -> Tuple[int, Dict[str, Flat]]:
+    def restore_latest(self, templates: Dict[str, Any], shardings=None,
+                       ) -> Tuple[int, Dict[str, Any]]:
         """The newest step that passes validation, falling back past
-        corrupt ones -> ``(step, groups)``; raises
+        corrupt ones -> ``(step, trees)``; raises
         :class:`CorruptCheckpointError` when none does."""
+        _no_shardings(shardings)
         steps = self.all_steps()
         skipped = []
         for step in reversed(steps):
@@ -153,11 +241,13 @@ class CheckpointManager:
             f"no valid checkpoint under {self.directory!r} "
             f"(steps seen: {steps}, failed validation: {skipped})")
 
-    def restore(self, step: int, templates: Dict[str, Flat]
-                ) -> Dict[str, Flat]:
-        """The groups named by ``templates`` ({group: {key: array}}): each
-        stored array must have its template's shape and is cast to its
-        dtype."""
+    def restore(self, step: int, templates: Dict[str, Any], shardings=None,
+                ) -> Dict[str, Any]:
+        """The trees named by ``templates`` (trees of tensors or numpy
+        arrays giving the structure): each stored leaf must have its
+        template's shape, and comes back as its template's type (a tensor
+        of its dtype on its device, or a numpy array of its dtype)."""
+        _no_shardings(shardings)
         base = self._step_dir(step)
         try:
             with open(os.path.join(base, "manifest.json")) as f:
@@ -179,13 +269,22 @@ class CheckpointManager:
             except (OSError, ValueError, zipfile.BadZipFile) as e:
                 raise CorruptCheckpointError(
                     f"step {step}: unreadable {name}.npz ({e})") from e
-            group = {}
-            for key, leaf in template.items():
+
+            def leaf(path, tmpl, flat=flat):
+                key = _key(path)
                 arr = flat[key]
-                if tuple(arr.shape) != tuple(np.shape(leaf)):
+                if tuple(arr.shape) != tuple(np.shape(tmpl)):
                     raise ValueError(
                         f"checkpoint leaf {key}: shape {arr.shape} != "
-                        f"template {np.shape(leaf)}")
-                group[key] = np.asarray(arr, np.asarray(leaf).dtype)
-            out[name] = group
+                        f"template {tuple(np.shape(tmpl))}")
+                return _from_host(arr, tmpl)
+
+            out[name] = tree_lib.map_with_path(leaf, template)
         return out
+
+
+def _no_shardings(shardings) -> None:
+    if shardings is not None:
+        raise NotImplementedError(
+            "elastic restore onto shardings is training over a mesh, not "
+            "ported yet (ROADMAP A 6b)")

@@ -1,16 +1,15 @@
-"""Serve-side fault tolerance: injected failures, replica chaos schedules
-and straggler accounting.
+"""Fault tolerance: injected failures, replica chaos schedules, straggler
+accounting and the resumable training loop.
 
-A copy of the serving classes of the reference's
-``training/fault_tolerance.py`` (``FailureInjector``,
-``ServeFaultInjector``, ``ReplicaFaultPlan``, ``StragglerMonitor``), which
-imports no framework.
+A copy of the reference's ``training/fault_tolerance.py``
+(``FailureInjector``, ``ServeFaultInjector``, ``ReplicaFaultPlan``,
+``StragglerMonitor``, ``run_with_restarts``), which imports no framework.
 """
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -18,7 +17,8 @@ log = logging.getLogger("repro_torch.fault")
 
 
 class SimulatedFailure(RuntimeError):
-    """A node failure / preemption injected into a dispatch."""
+    """A node failure / preemption injected mid-training or into a
+    dispatch."""
 
 
 @dataclass
@@ -133,3 +133,22 @@ class StragglerMonitor:
                             step, seconds, self.factor, med)
                 return True
         return False
+
+
+def run_with_restarts(make_state: Callable[[], Any],
+                      train: Callable[[Any, int], Any],
+                      *, max_restarts: int = 3) -> Any:
+    """Generic resumable loop: ``make_state()`` loads the latest checkpoint
+    (or fresh state); ``train(state, restart_count)`` runs until completion
+    or raises ``SimulatedFailure``.  Mirrors a cluster-level auto-restart
+    policy."""
+    restarts = 0
+    while True:
+        state = make_state()
+        try:
+            return train(state, restarts)
+        except SimulatedFailure as e:
+            restarts += 1
+            log.warning("restart %d/%d after %s", restarts, max_restarts, e)
+            if restarts > max_restarts:
+                raise
