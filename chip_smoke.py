@@ -55,7 +55,15 @@ device profile, one step on the card against the CPU, one step at the
 config's ``train_seq`` shape (4,096 sequences as 128 microbatches), the
 trained weights served through both kernels bit-identical to the plain
 route (20 launches each), gBERT4Rec and the four recsys kinds at full
-width through the launcher, and the end-to-end example.  Both kernel sources are built at once, one
+width through the launcher, and the end-to-end example.  Then the LM
+family (``lm_phase``): gemma3-27b at full width cut to 6 layers (one
+5:1 sliding/global period), bf16, at its ``decode_32k`` shape (B=128,
+32,768 slots): decode steps with every vocabulary head (the fused,
+scores-kernel and pruned heads bit-identical to plain ``pqtopk`` at
+k=64 and 8, launches counted), both kernels at the int32 vocabulary
+shape, ``DecodeEngine`` with the fused head (form (a) once a step), the
+ring past its wrap against the windowed prefill, and the card against
+the CPU; then qwen2.5-14b cut to 2 layers on the stacked-cache path.  Both kernel sources are built at once, one
 nvcc each; a pqtopk instance for a width the configs use (m = 2, 4, 6, 8)
 with a stack frame fails the run.  Prints the card's name and power limit,
 the pqtopk launch plans, kernel and per-method timings, a JSON line of
@@ -2135,7 +2143,8 @@ def launcher_line(what, res, peak, held, wall, batch):
     return ms
 
 
-def profile_step(fn, top=8):
+def profile_step(fn, top=8,
+                 label="train profile (forward+backward, B=32, one step)"):
     """One ``fn()`` under ``torch.profiler``: the device time by kernel
     (self time, summed over calls), the largest ``top`` and the total."""
     import torch
@@ -2154,9 +2163,9 @@ def profile_step(fn, top=8):
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     if not rows:
-        print("train profile: the profiler saw no device time")
+        print(f"{label}: the profiler saw no device time")
         return
-    print(f"train profile (forward+backward, B=32, one step): device "
+    print(f"{label}: device "
           f"{total:.3f}ms in {sum(r[1] for r in rows)} kernel launches; "
           "largest: " + "; ".join(f"{k[:60]} x{c} {ms:.3f}ms"
                                   for ms, c, k in rows[:top]))
@@ -2393,6 +2402,425 @@ def train_phase(dev):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"train phase: {time.monotonic() - t_phase:.1f}s")
+
+
+# ---- the LM family: decode with the PQ vocabulary head ----------------
+
+LM_HEADS = ("pqtopk_fused", "pqtopk_kernel", "pqtopk", "pqtopk_pruned",
+            "dense")
+# Kernel launches of one head call (the pruned cascade: the greedy seed's
+# scores kernel, then the fused kernel over its compacted tile list).
+LM_HEAD_LAUNCHES = {"pqtopk_fused": {"pq_topk_fused": 1},
+                    "pqtopk_kernel": {"pq_scores": 1}, "pqtopk": {},
+                    "pqtopk_pruned": {"pq_topk_fused": 1, "pq_scores": 1},
+                    "dense": {}}
+LM_STEPS = 3                        # checked decode steps at B=128
+LM_KS = (64, 8)                     # 64 = the fused kernel's candidate cap
+LM_ENGINE_REQUESTS, LM_ENGINE_NEW = 256, 16
+RING_LEN, RING_STEPS = 2048, 1100   # past the 1,024-slot rings
+CPU_LEN, CPU_STEPS = 64, 4
+# Tolerances on phi as a relative Frobenius error ||a - b|| / ||b||,
+# measured on the card (PERF.md, section 6), for the ring against the
+# windowed prefill and for the card against the CPU.  The full configs'
+# bfloat16 rounds too coarsely to see a ring fault (a few dozen of 1,024
+# slots wrong moves phi less than bfloat16 does), so both checks also run
+# with the same weights cast to float32, where they are held tight and
+# planted ring faults must exceed the limit.
+LM_REL_TOL = {"bfloat16": 2e-2, "float32": 3e-5}
+RING_FAULT_DUP = (32, 1)            # slots overwritten by their neighbours
+
+
+def _nbytes(tree):
+    import torch
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size() \
+        if isinstance(tree, torch.Tensor) else 0
+
+
+def lm_model(arch, n_layers, dev):
+    """The full-width config cut to ``n_layers``, random weights drawn on
+    the card from seed 0.  -> (arch config, model config, params)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    full = get_config(arch)
+    cfg = replace(full.model, n_layers=n_layers)
+    t0 = time.monotonic()
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    print(f"lm init {arch}: {n_layers} of {full.model.n_layers} layers, d="
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, heads {cfg.attention.n_heads}/"
+          f"{cfg.attention.n_kv_heads}x{cfg.attention.head_dim}, vocab "
+          f"{cfg.vocab}, {cfg.param_dtype}, PQ head m={cfg.pq_head.m} b="
+          f"{cfg.pq_head.b} {params['pq_head']['codes'].dtype}; weights "
+          f"{_nbytes(params) / 1e9:.2f} GB drawn on the card in "
+          f"{time.monotonic() - t0:.3f}s")
+    return full, cfg, params
+
+
+def rel_err(got, want):
+    """(||got - want|| / ||want||, max |got - want|) in float32."""
+    d = (got.float() - want.float())
+    return (float(d.norm() / want.float().norm()), float(d.abs().max()))
+
+
+def lm_steps(what, params, cfg, caches, tokens):
+    """``LM_STEPS`` decode steps at positions 0, 1, ...: the backbone's
+    host ms (synchronized), then every head on the step's phi, each timed
+    (host clock, median of 3) and its launches counted; the kernel heads
+    bit-identical to plain ``pqtopk`` at each k of ``LM_KS``.  -> (phi of
+    the last step, {name: median ms}, {kernel: launches read from the
+    counts over every checked head call})."""
+    import collections
+    import torch
+    from repro_torch.models import transformer as T
+    ms = {name: [] for name in ("backbone",) + LM_HEADS}
+    launched = collections.Counter()
+    for pos in range(LM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        phi = T._decode_backbone(params, tokens[pos], pos, caches, cfg)
+        torch.cuda.synchronize()
+        ms["backbone"].append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(phi).all()):
+            raise AssertionError(f"{what}: non-finite phi at step {pos}")
+        for k in LM_KS:
+            want = T._decode_head(params, phi, cfg, k, "pqtopk")
+            for method in LM_HEADS:
+                reset_counts()
+                got = T._decode_head(params, phi, cfg, k, method)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                launched.update(counts)
+                expect = {n: LM_HEAD_LAUNCHES[method].get(n, 0)
+                          for n in counts}
+                if counts != expect:
+                    raise AssertionError(f"{what} {method} k={k} launched "
+                                         f"{counts}, expected {expect}")
+                if method in ("pqtopk_fused", "pqtopk_kernel",
+                              "pqtopk_pruned"):
+                    compare(f"{what} {method} k={k} step {pos}",
+                            (got[1], got[0]), (want[1], want[0]))
+                elif got[0].shape != (phi.shape[0], k) or not bool(
+                        torch.isfinite(got[1]).all()):
+                    raise AssertionError(f"{what} {method}: bad top-{k}")
+        for method in LM_HEADS:
+            ms[method].append(host_ms(lambda: T._decode_head(
+                params, phi, cfg, LM_KS[0], method), reps=3))
+        print(f"lm {what} step {pos}: backbone {ms['backbone'][-1]:.3f}ms; "
+              + ", ".join(f"{m} {ms[m][-1]:.3f}" for m in LM_HEADS)
+              + f" ms (k={LM_KS[0]}, host clock)")
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    print(f"lm {what}: median over {LM_STEPS} steps: backbone "
+          f"{med['backbone']:.3f}ms, heads "
+          + ", ".join(f"{m} {med[m]:.3f}" for m in LM_HEADS)
+          + "ms; pqtopk_fused, pqtopk_kernel, pqtopk_pruned bit-identical "
+          f"to pqtopk at k={LM_KS}; launches per head call "
+          f"{LM_HEAD_LAUNCHES}, counted over the checked calls "
+          f"{dict(launched)}")
+    return phi, med, dict(launched)
+
+
+def lm_float32(params, cfg):
+    """The backbone's weights cast to float32 and the config to match (the
+    PQ head, which the backbone never reads, left out)."""
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        return t.float() if t.is_floating_point() else t
+    return ({k: cast(v) for k, v in params.items() if k != "pq_head"},
+            replace(cfg, dtype="float32", param_dtype="float32"))
+
+
+def _clone_caches(caches):
+    return [{n: t.clone() for n, t in c.items()} for c in caches]
+
+
+def lm_ring(params, cfg, toks):
+    """``RING_STEPS`` decode steps at B=2 into gemma3's rings and a global
+    cache of ``RING_LEN`` slots, the last phi held to
+    ``LM_REL_TOL[cfg.dtype]`` against ``lm_prefill`` over the same tokens.
+    The last step is also run from two planted ring faults and their
+    readings printed: "no wrap" (the slots written past the wrap hold
+    positions 0, 1, ... again, as a ring that stopped at its end would)
+    and "dup n" (n of ``RING_FAULT_DUP`` slots of every ring overwritten
+    by their neighbours).  In float32 each fault must exceed the
+    limit."""
+    import torch
+    from repro_torch.models import transformer as T
+    tol = LM_REL_TOL[cfg.dtype]
+    flags = T.layer_types(cfg)
+    caches = T.init_caches(cfg, 2, RING_LEN, device=toks.device)
+    ring = min(cfg.attention.window, RING_LEN)
+    n_wrapped = RING_STEPS - 1 - ring     # ring slots rewritten before the
+    rings = [i for i, g in enumerate(flags) if not g]   # last step
+    t0 = time.monotonic()
+    with torch.no_grad():
+        for pos in range(RING_STEPS - 1):
+            T._decode_backbone(params, toks[:, pos], pos, caches, cfg)
+            if pos == n_wrapped - 1:
+                early = {i: {n: t[:, :n_wrapped].clone()
+                             for n, t in caches[i].items()} for i in rings}
+        before = _clone_caches(caches)
+        last = RING_STEPS - 1
+        phi = T._decode_backbone(params, toks[:, last], last, caches, cfg)
+        torch.cuda.synchronize()
+        t_dec = time.monotonic() - t0
+        want = T.lm_prefill(params, toks, cfg).float()
+        faults = {}
+        for fault in (0,) + RING_FAULT_DUP:
+            bad = _clone_caches(before)
+            for i in rings:
+                for n, t in bad[i].items():
+                    if fault:
+                        t[:, :fault] = t[:, fault:2 * fault]
+                    else:
+                        t[:, :n_wrapped] = early[i][n]
+            name = f"dup {fault}" if fault else f"no wrap ({n_wrapped} slots)"
+            faults[name] = rel_err(T._decode_backbone(
+                params, toks[:, last], last, bad, cfg), want)[0]
+    rel, mx = rel_err(phi, want)
+    print(f"lm ring gemma3-27b {cfg.dtype}: B=2, {RING_STEPS} decode steps "
+          f"into rings of {ring} and a global cache of {RING_LEN} "
+          f"({t_dec / RING_STEPS * 1e3:.3f} ms a step), last phi against "
+          f"lm_prefill over the same tokens: rel {rel:.3e} max abs "
+          f"{mx:.3e} (tolerance rel {tol}); planted faults at the last "
+          f"step, rel: " + ", ".join(f"{f} {r:.3e}"
+                                     for f, r in faults.items()))
+    if not rel <= tol:
+        raise AssertionError(f"lm ring {cfg.dtype}: rel error {rel} > {tol}")
+    if cfg.dtype == "float32" and not min(faults.values()) > tol:
+        raise AssertionError(f"lm ring float32: a planted fault {faults} "
+                             f"within the tolerance {tol}")
+
+
+def lm_vs_cpu(params, cpu_params, cfg, toks, dev):
+    """``CPU_STEPS`` decode steps at B=2, max_len ``CPU_LEN``, on the card
+    and on the CPU from the same weights: the last phi within
+    ``LM_REL_TOL[cfg.dtype]``.  -> the card's last phi."""
+    import torch
+    from repro_torch.models import transformer as T
+    tol = LM_REL_TOL[cfg.dtype]
+    caches_g, caches_c = (T.init_caches(cfg, 2, CPU_LEN, device=d)
+                          for d in (dev, "cpu"))
+    t0 = time.monotonic()
+    with torch.no_grad():
+        for pos in range(CPU_STEPS):
+            pg = T._decode_backbone(params, torch.from_numpy(toks[pos])
+                                    .to(dev), pos, caches_g, cfg)
+            pc = T._decode_backbone(cpu_params, torch.from_numpy(toks[pos]),
+                                    pos, caches_c, cfg)
+    rel, mx = rel_err(pg.cpu(), pc)
+    print(f"lm card vs CPU gemma3-27b {cfg.dtype}: B=2, {CPU_STEPS} steps, "
+          f"phi rel {rel:.3e} max abs {mx:.3e} (tolerance rel {tol}; "
+          f"{time.monotonic() - t0:.1f}s)")
+    if not rel <= tol:
+        raise AssertionError(f"lm card vs CPU {cfg.dtype}: rel error {rel}")
+    return pg
+
+
+def lm_engine(params, cfg, dev, n_slots, max_len):
+    """``DecodeEngine`` with the fused head: ``LM_ENGINE_REQUESTS`` one-token
+    prompts, ``LM_ENGINE_NEW`` tokens each.  Prints tokens/s, step ms
+    (median, p99; host clock, each step ends on its host read) and peak
+    device memory above what was held; form (a) launched once a step."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    def decode_fn(tokens, pos, caches):
+        ids, _, caches = T.lm_decode_step(params, tokens, pos.max(), caches,
+                                          cfg, head_method="pqtopk_fused")
+        return ids[:, 0], caches
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    eng = DecodeEngine(decode_fn, lambda b: T.init_caches(
+        cfg, b, max_len, device=dev), n_slots=n_slots, max_len=max_len,
+        device=dev)
+    rng = np.random.default_rng(3)
+    for i in range(LM_ENGINE_REQUESTS):
+        eng.submit(Request(i, rng.integers(0, cfg.vocab, 1), k=1))
+    reset_counts()
+    steps = []
+    t0 = time.monotonic()
+    while eng.waiting or any(eng.slot_req):
+        t = time.perf_counter()
+        eng.step(LM_ENGINE_NEW)
+        steps.append((time.perf_counter() - t) * 1e3)
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    expect_counts("lm engine (pqtopk_fused)", counts,
+                  pq_topk_fused=len(steps))
+    n_tok = sum(len(t) for _, t in eng.finished)
+    if len(eng.finished) != LM_ENGINE_REQUESTS or n_tok != \
+            LM_ENGINE_REQUESTS * LM_ENGINE_NEW or not all(
+                0 <= x < cfg.vocab for _, t in eng.finished for x in t):
+        raise AssertionError("lm engine: wrong finished requests")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"lm engine {cfg.name}: {n_slots} slots, max_len {max_len}, "
+          f"{LM_ENGINE_REQUESTS} requests x {LM_ENGINE_NEW} tokens in "
+          f"{len(steps)} steps, {n_tok / wall:.1f} tokens/s, step ms median "
+          f"{statistics.median(steps):.3f} p99 "
+          f"{float(np.percentile(steps, 99)):.3f}, peak "
+          f"{peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} GiB above "
+          f"the {held / 2**30:.3f} GiB held), {wall:.1f}s")
+    del eng
+    return {"tokens_per_s": n_tok / wall, "launches": counts}
+
+
+def lm_phase(dev, n_sms):
+    """The LM family on the card (ROADMAP A 7a): gemma3-27b at full width
+    cut to 6 layers (one 5:1 period) at ``decode_32k`` (B=128, 32,768
+    slots): decode steps with every head, the int32 vocabulary kernels'
+    times, the decode engine, the ring past its wrap against the windowed
+    prefill, the card against the CPU; then qwen2.5-14b cut to 2 layers
+    (stacked caches) at B=128, max_len 4,096.  -> kernel records' fields
+    for the LM head shape."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.core import scoring
+    from repro_torch.interop import to_device
+    from repro_torch.kernels.pqtopk import kernel, ops, ref
+    from repro_torch.models import transformer as T
+    t_phase = time.monotonic()
+    print(f"lm phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB held "
+          "at its start")
+    full, cfg, params = lm_model("gemma3-27b", 6, dev)
+    dims = full.shape("decode_32k").dims
+    bq, max_len = dims["global_batch"], dims["seq_len"]
+    rng = np.random.default_rng(5)
+
+    # ---- 1. decode steps at decode_32k, every head ----------------------
+    caches = T.init_caches(cfg, bq, max_len, device=dev)
+    print(f"lm caches gemma3-27b B={bq} max_len {max_len}: "
+          + ", ".join(f"{c['k'].shape[1]}" for c in caches) + " slots, "
+          f"{_nbytes(caches) / 1e9:.2f} GB")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (LM_STEPS, bq))
+                              .astype(np.int32)).to(dev)
+    phi, _, steps_g = lm_steps("gemma3-27b", params, cfg, caches, tokens)
+    profile_step(lambda: T._decode_backbone(params, tokens[0], 0, caches,
+                                            cfg),
+                 label=f"lm profile (gemma3-27b backbone, B={bq}, one step)")
+
+    # ---- 2. the vocabulary kernels at the decode shape ------------------
+    head = params["pq_head"]
+    codes = head["codes"]
+    s = scoring.subid_scores(head["sub_emb"], phi).contiguous()
+    n, m = codes.shape
+    b = s.shape[2]
+    k = LM_KS[0]
+    tile = kernel.DEFAULT_TILE
+    idx = torch.arange(ops.n_tiles(n, tile), dtype=torch.int32, device=dev)
+    rec = {}
+    err = compare("lm pq_scores", (kernel.pq_scores_cuda(codes, s),),
+                  (ref.pq_scores(codes, s),))
+    flat = codes.long() + torch.arange(m, device=dev) * b
+    table = s.permute(1, 2, 0).reshape(m * b, bq).contiguous()
+    bnd, by, terms = bound_ms(n * m * 4 + bq * m * b * 4 + bq * n * 4,
+                              bq * n * (m - 1), bq * n * m, n_sms)
+    rec["pq_scores"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: kernel.pq_scores_cuda(codes, s), 20,
+                      graph=True),
+        "plain_ms": time_ms(lambda: ref.pq_scores(codes, s), 3),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": time_ms(lambda: torch.nn.functional.embedding_bag(
+            flat, table, mode="sum"), 20, graph=True)}
+    print(f"bound lm pq_scores: {terms} ms on {n_sms} SMs")
+    err = compare("lm pq_topk_fused",
+                  kernel.pq_topk_fused_cuda(codes, s, k, idx, n_items=n,
+                                            tile=tile),
+                  ref.pq_topk_slots(codes, s, k, idx, n_items=n, tile=tile))
+    bnd, by, terms = bound_ms(
+        n * m * 4 + bq * m * b * 4 + idx.numel() * 4
+        + bq * idx.numel() * k * 8, bq * n * (m - 1), bq * n * m, n_sms)
+    rec["pq_topk_fused"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: kernel.pq_topk_fused_cuda(
+            codes, s, k, idx, n_items=n, tile=tile), 20, graph=True),
+        "plain_ms": time_ms(lambda: ref.pq_topk_slots(
+            codes, s, k, idx, n_items=n, tile=tile), 3),
+        "bound_ms": bnd, "bound_by": by, "library_ms": None}
+    print(f"bound lm pq_topk_fused: {terms} ms on {n_sms} SMs")
+    for name, r in rec.items():
+        print(f"kernel {name} (lm head: B={bq}, N={n}, m={m}, b={b}, "
+              f"{codes.dtype}, k={k}): {r['ms']:.4f}ms plain "
+              f"{r['plain_ms']:.4f}ms bound {r['bound_ms']:.4f}ms "
+              f"({r['bound_by']}) library {r['library_ms']}")
+    del caches, s, flat, table, phi
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 3. DecodeEngine, the fused head ---------------------------------
+    eng = lm_engine(params, cfg, dev, bq, max_len)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 4. the ring past its wrap, against the windowed prefill ---------
+    # ---- 5. the card against the CPU -------------------------------------
+    # Both in the config's bfloat16, then with the weights cast to float32.
+    ring_toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, RING_STEPS))
+                                 .astype(np.int32)).to(dev)
+    cpu_toks = rng.integers(0, cfg.vocab, (CPU_STEPS, 2)).astype(np.int32)
+    lm_ring(params, cfg, ring_toks)
+    cpu_params = to_device(params, "cpu")
+    t0 = time.monotonic()
+    pg = lm_vs_cpu(params, cpu_params, cfg, cpu_toks, dev)
+    with torch.no_grad():
+        fused = T._decode_head(params, pg, cfg, 64, "pqtopk_fused")
+        plain = T._decode_head(cpu_params, pg.cpu(), cfg, 64, "pqtopk")
+        s_g = scoring.subid_scores(head["sub_emb"], pg).contiguous()
+        from repro_torch.core import topk as topk_lib
+        same_s = topk_lib.topk(scoring.score_pqtopk(
+            cpu_params["pq_head"]["codes"], s_g.cpu()), 64)
+    phi_bits = same_bits((fused[1].cpu(), fused[0].cpu()),
+                         (plain[1], plain[0]))
+    if not torch.equal(fused[0].cpu(), plain[0]):
+        raise AssertionError("lm card vs CPU: top-64 ids differ")
+    compare("lm card fused vs CPU plain on the card's S",
+            (fused[1].cpu(), fused[0].cpu()), same_s)
+    print(f"lm card vs CPU gemma3-27b: the card's fused top-64 against the "
+          f"CPU's plain pqtopk on the card's phi: ids equal, values "
+          f"bit-identical {phi_bits}; on the card's S bit-identical "
+          f"({time.monotonic() - t0:.1f}s)")
+    del cpu_params, pg, fused, plain, s_g
+    p32, cfg32 = lm_float32(params, cfg)
+    lm_ring(p32, cfg32, ring_toks)
+    lm_vs_cpu(p32, to_device(p32, "cpu"), cfg32, cpu_toks, dev)
+    del p32, params, head, codes, ring_toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 6. qwen2.5-14b: the stacked-cache path --------------------------
+    _, qcfg, qparams = lm_model("qwen2.5-14b", 2, dev)
+    qcaches = T.init_caches(qcfg, bq, 4096, device=dev)
+    print(f"lm caches qwen2.5-14b B={bq} max_len 4096: stacked "
+          f"{tuple(qcaches['k'].shape)}, {_nbytes(qcaches) / 1e9:.2f} GB")
+    qtok = torch.from_numpy(rng.integers(0, qcfg.vocab, (LM_STEPS, bq))
+                            .astype(np.int32)).to(dev)
+    steps_q = lm_steps("qwen2.5-14b", qparams, qcfg, qcaches, qtok)[2]
+    del qparams, qcaches
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"lm phase: {time.monotonic() - t_phase:.1f}s")
+    # Launches on each kernel's LM path, as the counts read them: the
+    # engine's fused head, and every checked head call of both models.
+    for name, r in rec.items():
+        parts = {"engine": eng["launches"].get(name, 0),
+                 "gemma3 steps": steps_g.get(name, 0),
+                 "qwen2.5 steps": steps_q.get(name, 0)}
+        r["launches"] = sum(parts.values())
+        print(f"lm launches {name}: {r['launches']} ({parts})")
+    return rec
 
 
 EB_SRC = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
@@ -2862,6 +3290,7 @@ def main(argv=None) -> int:
     live_rec = mutable_path(params, cfg, dev, n_sms, path_stats)
     router_phase(params, cfg, dev, fused_out, path_stats)
     train_phase(dev)
+    lm = lm_phase(dev, n_sms)
 
     # ---- every method once, on one full batch ------------------------
     rng = np.random.default_rng(2)
@@ -3002,6 +3431,11 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/pqtopk/kernel.py:148",
         "max_abs_err": max_err["pq_topk_fused_live"], **live_rec,
         "library_ms": None})
+    for name, line in (("pq_scores", 100), ("pq_topk_fused", 145)):
+        recs.append({"name": f"{name}_lm_head", "route": "cuda",
+                     "source": src,
+                     "replaces": f"src/repro/kernels/pqtopk/kernel.py:{line}",
+                     **lm[name]})
     bags = recsys_models(dev, n_sms)
     bulk = bags["bst serve_bulk"]
     recs.append({

@@ -1,10 +1,12 @@
-"""Config dataclasses + the seqrec and recsys arch registry.
+"""Config dataclasses + the seqrec, recsys and dense-LM arch registry.
 
 A framework-free copy of the reference's ``configs/base.py``, cut to the
-classes the serving paths read (``PQConfig``, ``AttentionConfig``,
-``SeqRecConfig``, ``RecsysConfig``, ``ArchConfig``).  Field names,
-defaults and validation are unchanged, so a config built here describes
-the same model as its namesake in the reference.
+classes the ported paths read (``PQConfig``, ``MoEConfig``,
+``AttentionConfig``, ``LMConfig``, ``SeqRecConfig``, ``RecsysConfig``,
+``ArchConfig``).  Field names, defaults and validation are unchanged, so
+a config built here describes the same model as its namesake in the
+reference.  ``LMConfig.moe`` is carried as a field; the port's
+transformer refuses an LM that sets it (MoE is ROADMAP A 7b).
 """
 from __future__ import annotations
 
@@ -86,6 +88,16 @@ class PQConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+
+
+@dataclass(frozen=True)
 class AttentionConfig:
     n_heads: int
     n_kv_heads: int
@@ -93,8 +105,79 @@ class AttentionConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 10_000.0
+    # Sliding-window mix: every ``local_global_ratio``+1-th layer is global,
+    # the rest are local with window ``window``.  0 => all layers global.
     window: int = 0
     local_global_ratio: int = 0
+
+    def layer_is_global(self, layer_idx: int) -> bool:
+        if self.local_global_ratio <= 0 or self.window <= 0:
+            return True
+        return (layer_idx + 1) % (self.local_global_ratio + 1) == 0
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab: int
+    attention: AttentionConfig
+    act: str = "silu"         # silu | gelu | relu | sqrelu
+    gated_mlp: bool = True    # GLU-style two-matrix up-projection
+    moe: Optional[MoEConfig] = None
+    moe_impl: str = "dense"   # dense (GShard one-hot) | sort (gather/scatter)
+    norm: str = "rmsnorm"     # rmsnorm | layernorm
+    tie_embeddings: bool = True
+    causal: bool = True       # False => encoder-style
+    # PQ-compressed unembedding for decode-time vocab scoring.
+    pq_head: Optional[PQConfig] = PQConfig()
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    moment_dtype: str = "float32"
+    remat: bool = True
+    scan_layers: bool = True
+
+    @property
+    def q_dim(self) -> int:
+        return self.attention.n_heads * self.attention.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.attention.n_kv_heads * self.attention.head_dim
+
+    def _attn_params(self) -> int:
+        return (self.d_model * (self.q_dim + 2 * self.kv_dim)
+                + self.q_dim * self.d_model)
+
+    def _emb_params(self) -> int:
+        return self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + blocks)."""
+        n_mat = 3 if self.gated_mlp else 2
+        if self.moe is None:
+            ffn = n_mat * self.d_model * self.d_ff
+        else:
+            ffn = (self.moe.n_experts * n_mat * self.d_model
+                   * self.moe.d_ff_expert)
+            ffn += self.d_model * self.moe.n_experts  # router
+            ffn += (self.moe.n_shared * n_mat * self.d_model
+                    * self.moe.d_ff_expert)
+        return self.n_layers * (self._attn_params() + ffn) \
+            + self._emb_params()
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE counts top_k experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        n_mat = 3 if self.gated_mlp else 2
+        ffn = ((self.moe.top_k + self.moe.n_shared) * n_mat * self.d_model
+               * self.moe.d_ff_expert)
+        ffn += self.d_model * self.moe.n_experts
+        return self.n_layers * (self._attn_params() + ffn) \
+            + self._emb_params()
 
 
 @dataclass(frozen=True)
@@ -154,6 +237,24 @@ class ShapeSpec:
     skip_reason: str = ""
 
 
+def lm_shapes(*, sub_quadratic: bool, decoder: bool = True
+              ) -> Tuple[ShapeSpec, ...]:
+    encoder_skip = "encoder-only arch: no autoregressive decode"
+    return (
+        ShapeSpec("train_4k", "train", {"seq_len": 4096, "global_batch": 256}),
+        ShapeSpec("prefill_32k", "prefill",
+                  {"seq_len": 32_768, "global_batch": 32}),
+        ShapeSpec("decode_32k", "decode",
+                  {"seq_len": 32_768, "global_batch": 128},
+                  skip_reason="" if decoder else encoder_skip),
+        ShapeSpec(
+            "long_500k", "decode", {"seq_len": 524_288, "global_batch": 1},
+            skip_reason="" if (sub_quadratic and decoder) else (
+                "pure full-attention arch: no sub-quadratic mechanism "
+                "(DESIGN.md §4)" if decoder else encoder_skip)),
+    )
+
+
 def seqrec_shapes(n_items: int) -> Tuple[ShapeSpec, ...]:
     return (
         ShapeSpec("train_seq", "train", {"global_batch": 4096, "seq_len": 200}),
@@ -190,6 +291,9 @@ class ArchConfig:
 
 
 _REGISTRY = {
+    "qwen2.5-14b": "qwen2_5_14b",
+    "nemotron-4-340b": "nemotron_4_340b",
+    "gemma3-27b": "gemma3_27b",
     "sasrec-recjpq": "sasrec_recjpq",
     "gbert4rec-recjpq": "gbert4rec_recjpq",
     "dcn-v2": "dcn_v2",
@@ -197,6 +301,10 @@ _REGISTRY = {
     "dien": "dien",
     "fm": "fm",
 }
+
+
+def list_archs() -> Tuple[str, ...]:
+    return tuple(_REGISTRY)
 
 
 def _module(arch_id: str):
@@ -214,8 +322,8 @@ def get_reduced(arch_id: str) -> ArchConfig:
 
 
 __all__ = [
-    "PQConfig", "CODE_DTYPE_CAPACITY", "min_code_dtype", "AttentionConfig",
-    "SeqRecConfig", "RecsysConfig", "ShapeSpec", "ArchConfig",
-    "seqrec_shapes", "recsys_shapes",
-    "get_config", "get_reduced",
+    "PQConfig", "CODE_DTYPE_CAPACITY", "min_code_dtype", "MoEConfig",
+    "AttentionConfig", "LMConfig", "SeqRecConfig", "RecsysConfig",
+    "ShapeSpec", "ArchConfig", "lm_shapes", "seqrec_shapes",
+    "recsys_shapes", "list_archs", "get_config", "get_reduced",
 ]

@@ -47,18 +47,20 @@ def init_pq_embedding(generator: torch.Generator, pq: PQConfig, n_items: int,
                       centroids: Optional[np.ndarray] = None,
                       device="cpu") -> Params:
     """Random codes in [0, b) and N(0, 0.02^2) sub-embeddings, drawn on the
-    CPU from ``generator`` (so a seed gives the same weights on any device)
-    and then moved to ``device``."""
+    generator's device (a CPU generator gives the same weights whatever
+    ``device`` is) and then moved to ``device``."""
     if d_model % pq.m:
         raise ValueError(f"d_model={d_model} not divisible by m={pq.m}")
     sub = d_model // pq.m
     if codes is None:
-        codes = torch.randint(0, pq.b, (n_items, pq.m), generator=generator)
+        codes = torch.randint(0, pq.b, (n_items, pq.m), generator=generator,
+                              device=generator.device)
     else:
         codes = torch.from_numpy(np.asarray(codes).astype(np.int64))
     codes = codes.to(TORCH_CODE_DTYPES[pq.code_dtype])
     if centroids is None:
-        sub_emb = torch.randn((pq.m, pq.b, sub), generator=generator) * 0.02
+        sub_emb = torch.randn((pq.m, pq.b, sub), generator=generator,
+                              device=generator.device) * 0.02
     else:
         sub_emb = torch.as_tensor(np.asarray(centroids, np.float32))
         if tuple(sub_emb.shape) != (pq.m, pq.b, sub):

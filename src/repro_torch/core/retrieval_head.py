@@ -50,7 +50,8 @@ def init(generator: torch.Generator, n_items: int, d_model: int,
     here, per ``pq.bound_backend`` and ``pq.super_factor``, so the cascade
     never rebuilds it)."""
     if pq is None:
-        table = torch.randn((n_items, d_model), generator=generator) * 0.02
+        table = torch.randn((n_items, d_model), generator=generator,
+                            device=generator.device) * 0.02
         return {"table": table.to(device)}
     params = pq_lib.init_pq_embedding(generator, pq, n_items, d_model, codes,
                                       centroids, device=device)

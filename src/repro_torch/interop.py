@@ -1,7 +1,9 @@
 """Parameter interop with the reference package, through numpy.
 
-``params_from_jax`` takes a reference parameter tree — ``init_seqrec``'s
-or ``init_recsys``'s, for any of the four recsys kinds — with its leaves
+``params_from_jax`` takes a reference parameter tree — ``init_seqrec``'s,
+``init_recsys``'s for any of the four recsys kinds, or ``init_lm``'s (its
+stacked (L, ...) layer leaves, bfloat16 leaves and the PQ head with its
+pruning state) — with its leaves
 as numpy arrays (or anything ``np.asarray`` accepts) and returns the same
 tree of torch tensors: dicts stay dicts, lists (the recsys tables, cross
 layers, MLP towers, FM linear weights) stay lists, and a 0-d leaf (FM's
@@ -18,7 +20,9 @@ packages can start from one mutable catalogue.  ``opt_state_from_jax``
 carries an optimizer state over (AdamW's ``{"step", "m", "v"}``,
 Adafactor's ``{"step", "v"}`` with its per-leaf dicts), so both packages
 can run the same steps from the same state; ``bfloat16`` moments keep
-their bits.
+their bits.  ``params_from_jax`` also carries ``init_caches``' KV caches
+over (the stacked pair or the per-layer list), so both packages can
+decode from one cache state.
 """
 from __future__ import annotations
 
@@ -79,8 +83,9 @@ def _convert(tree: Any, device) -> Any:
 
 
 def params_from_jax(tree: Any, device="cpu") -> Any:
-    """A reference parameter tree (seqrec or recsys) -> the port's, on
-    ``device``."""
+    """A reference parameter tree (seqrec, recsys or LM, stacked layers
+    included) or LM cache state (a stacked ``{"k", "v"}`` pair or a list
+    of per-layer pairs) -> the port's, on ``device``, dtypes kept."""
     return _convert(tree, device)
 
 

@@ -1,13 +1,15 @@
 """Training launcher: an end-to-end loop with checkpoint/auto-resume and
-failure injection, for the seqrec and recsys families.
+failure injection, for the seqrec, recsys and dense-LM families.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec-recjpq \
       --steps 200 --batch 32 --ckpt /tmp/ckpt --fail-at 120
   PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec-recjpq \
       --reduced --device cpu --steps 30 --ckpt /tmp/ckpt --fail-at 12
 
-Weights are random (``torch.Generator().manual_seed(0)``); the data are
-the reference launcher's synthetic streams, bit for bit.  ``--device``
+Weights are random (``torch.Generator().manual_seed(0)``, drawn on the
+CPU and moved to the device); the data are the reference launcher's
+synthetic streams, bit for bit (an LM's: uniform random tokens at
+sequence length 64).  ``--device``
 defaults to ``cuda`` and the launcher raises when no card is present.  A
 failure injected at a step raises before that step's batch is drawn; the
 run restarts from the newest checkpoint (after any save still being
@@ -50,9 +52,22 @@ def make_data(arch, batch_size: int, seed: int = 0, device="cuda"):
         return (ctr_batches(cfg, batch_size, seed=seed),
                 lambda p, b: m.ctr_loss(p, b, cfg),
                 lambda gen: m.init_recsys(gen, cfg, device=device))
-    if arch.family in ("gnn", "lm"):
+    if arch.family == "gnn":
         raise NotImplementedError(
-            f"the {arch.family} family is not ported yet (ROADMAP A 7)")
+            "the gnn family is not ported yet (ROADMAP A 7c)")
+    if arch.family == "lm":
+        from repro_torch.models import transformer as m
+        vocab, seq = cfg.vocab, 64
+        rng = np.random.default_rng(seed)
+
+        def gen():
+            while True:
+                tok = rng.integers(0, vocab, (batch_size, seq + 1))
+                yield {"tokens": tok[:, :-1].astype(np.int32),
+                       "targets": tok[:, 1:].astype(np.int32)}
+
+        return (gen(), lambda p, b: m.lm_loss(p, b, cfg),
+                lambda g: m.init_lm(g, cfg, device=device))
     raise ValueError(arch.family)
 
 

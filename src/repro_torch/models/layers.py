@@ -10,6 +10,10 @@ PyTorch's habits and follow the reference instead:
 
 The MLP is the reference's: plain two-matrix (``gated=False``, the seqrec
 blocks and BST) or gated GLU (``act(gate(x)) * up(x)``).
+
+The ``*_init`` functions draw in float32 on ``generator.device`` and then
+cast to ``dtype`` (float32 unless the caller asks for another), as the
+reference does; norms are built on ``device``.
 """
 from __future__ import annotations
 
@@ -21,12 +25,20 @@ import torch.nn.functional as F
 Params = Dict[str, Any]
 
 
+def _normal(generator: torch.Generator, shape, scale: float,
+            dtype: torch.dtype) -> torch.Tensor:
+    """N(0, scale^2) drawn in float32 on the generator's device, then cast."""
+    w = torch.randn(shape, generator=generator, device=generator.device)
+    return (w * scale).to(dtype)
+
+
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, *,
-               bias: bool = False, scale: float | None = None) -> Params:
+               bias: bool = False, dtype: torch.dtype = torch.float32,
+               scale: float | None = None) -> Params:
     scale = scale if scale is not None else d_in ** -0.5
-    p = {"w": torch.randn((d_in, d_out), generator=generator) * scale}
+    p = {"w": _normal(generator, (d_in, d_out), scale, dtype)}
     if bias:
-        p["b"] = torch.zeros((d_out,))
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=generator.device)
     return p
 
 
@@ -38,14 +50,16 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def embedding_init(generator: torch.Generator, vocab: int, d: int,
+                   dtype: torch.dtype = torch.float32,
                    scale: float = 0.02) -> Params:
-    return {"table": torch.randn((vocab, d), generator=generator) * scale}
+    return {"table": _normal(generator, (vocab, d), scale, dtype)}
 
 
-def norm_init(d: int, kind: str = "rmsnorm") -> Params:
-    p = {"scale": torch.ones((d,))}
+def norm_init(d: int, kind: str = "rmsnorm",
+              dtype: torch.dtype = torch.float32, device="cpu") -> Params:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
     if kind == "layernorm":
-        p["bias"] = torch.zeros((d,))
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
     return p
 
 
@@ -103,13 +117,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, *,
-             gated: bool) -> Params:
+             gated: bool, dtype: torch.dtype = torch.float32) -> Params:
     p = {
-        "up": dense_init(generator, d_model, d_ff),
-        "down": dense_init(generator, d_ff, d_model, scale=d_ff ** -0.5),
+        "up": dense_init(generator, d_model, d_ff, dtype=dtype),
+        "down": dense_init(generator, d_ff, d_model, dtype=dtype,
+                           scale=d_ff ** -0.5),
     }
     if gated:
-        p["gate"] = dense_init(generator, d_model, d_ff)
+        p["gate"] = dense_init(generator, d_model, d_ff, dtype=dtype)
     return p
 
 

@@ -5,7 +5,8 @@ bounded retry of injected failures and straggler accounting — the
 single-device routes of the reference's ``serving/engine.py``, the pruned
 cascade's calibrated slot-budget ladder and rung statistics included, and
 the mutable catalogue's hot-swappable head (:meth:`RetrievalEngine.
-for_seqrec_mutable`, :meth:`RetrievalEngine.swap_head_state`).
+for_seqrec_mutable`, :meth:`RetrievalEngine.swap_head_state`) — and the
+LM family's slot-based :class:`DecodeEngine`.
 
 **One CUDA stream per engine.**  Several engines may share one card (the
 replicated fabric, ``serving/router.py``, runs each on its own worker
@@ -700,3 +701,68 @@ class RetrievalEngine:
                                         else 0.0)
             out["rung_counts"] = dict(sorted(self.rung_counts.items()))
         return out
+
+
+class DecodeEngine:
+    """Slot-based continuous batching for LM decode.
+
+    The reference's engine: each free slot admits the next waiting
+    request (its payload's first token, position 0), every step decodes
+    one token for all slots, and a slot retires its request once its
+    position reaches ``min(max_new, max_len - 1)``.  ``decode_fn`` is
+    called eagerly and may update the caches in place."""
+
+    def __init__(self, decode_fn, init_caches_fn, *, n_slots: int,
+                 max_len: int, k: int = 8, device="cuda"):
+        """``decode_fn(tokens (B,), pos (B,), caches)`` -> (next_tokens
+        (B,), caches), with ``tokens`` and ``pos`` int32 tensors on
+        ``device``; caches batched over slots."""
+        self.device = resolve_device(device)
+        self._decode = decode_fn
+        self.caches = init_caches_fn(n_slots)
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.k = k
+        self.slot_req: List[Optional[Request]] = [None] * n_slots
+        self.slot_pos = np.zeros(n_slots, np.int32)
+        self.slot_token = np.zeros(n_slots, np.int32)
+        self.slot_out: List[List[int]] = [[] for _ in range(n_slots)]
+        self.waiting: collections.deque[Request] = collections.deque()
+        self.finished: List[Tuple[Request, List[int]]] = []
+
+    def submit(self, req: Request):
+        self.waiting.append(req)
+
+    def _admit(self):
+        for s in range(self.n_slots):
+            if self.slot_req[s] is None and self.waiting:
+                req = self.waiting.popleft()
+                self.slot_req[s] = req
+                self.slot_pos[s] = 0
+                self.slot_token[s] = int(np.asarray(req.payload)
+                                         .reshape(-1)[0])
+                self.slot_out[s] = []
+
+    def step(self, max_new: int = 16):
+        """One engine iteration: admit, decode one token for all slots,
+        retire finished requests."""
+        self._admit()
+        active = [s for s in range(self.n_slots) if self.slot_req[s]]
+        if not active:
+            return
+        tokens = torch.from_numpy(self.slot_token.copy()).to(self.device)
+        pos = torch.from_numpy(self.slot_pos.copy()).to(self.device)
+        nxt, self.caches = self._decode(tokens, pos, self.caches)
+        nxt = nxt.cpu().numpy()
+        for s in active:
+            self.slot_out[s].append(int(nxt[s]))
+            self.slot_token[s] = int(nxt[s])
+            self.slot_pos[s] += 1
+            if self.slot_pos[s] >= min(max_new, self.max_len - 1):
+                self.finished.append((self.slot_req[s], self.slot_out[s]))
+                self.slot_req[s] = None
+
+    def run(self, max_new: int = 16):
+        while self.waiting or any(self.slot_req):
+            self.step(max_new)
+        return self.finished

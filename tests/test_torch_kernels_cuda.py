@@ -704,3 +704,53 @@ def test_fused_kernel_odd_tiles_match_plain_version(cuda_device, tile, bq):
         want = tref.pq_topk_slots(codes, s, 16, idx, n_items=5003,
                                   tile=tile, live=lv)
         _bits_equal([g.cpu() for g in got], want)
+
+
+@pytest.mark.parametrize("n,bq", [(262_144, 128), (152_064, 5)])
+@pytest.mark.parametrize("k", [8, 64])
+def test_lm_vocab_head_shapes_match_plain_versions(cuda_device, n, bq, k):
+    """The LM decode head's shape: int32 codes, m=8, b=256, a vocabulary
+    of 262,144 (gemma3) or 152,064 (qwen2.5) tokens, tiles of 2,048, and
+    k up to the fused kernel's 64-candidate buffer: ``pq_scores`` and the
+    fused kernel's form (a) bit for bit against their plain versions."""
+    codes, s = _inputs(n, 8, 256, bq, np.int32, seed=k + bq)
+    gc, gs = codes.to(cuda_device), s.to(cuda_device)
+    _bits_equal([tops.pq_scores(gc, gs).cpu()], [tref.pq_scores(codes, s)])
+    idx = torch.arange(tops.n_tiles(n, 2048), dtype=torch.int32)
+    got = tops.pq_topk_slots(gc, gs, k, idx.to(cuda_device), n_items=n,
+                             tile=2048)
+    want = tref.pq_topk_slots(codes, s, k, idx, n_items=n, tile=2048)
+    _bits_equal([g.cpu() for g in got], want)
+    v, i = tops.pq_topk(gc, gs, k)
+    assert i[0, :3].tolist() == [3, n // 2, n - 1]
+
+
+def test_lm_decode_step_heads_on_the_card(cuda_device):
+    """A reduced gemma3 decode on the card: the fused head launches form
+    (a) once a step and matches plain ``pqtopk`` bit for bit at k=64, as
+    do the scores kernel's head and the pruned cascade."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.models import transformer as T
+    cfg = get_reduced("gemma3-27b").model
+    params = T.init_lm(torch.Generator().manual_seed(0), cfg,
+                       device=cuda_device)
+    caches = T.init_caches(cfg, 4, 16, device=cuda_device)
+    tok = torch.tensor([1, 7, 99, 300], dtype=torch.int32,
+                       device=cuda_device)
+    for pos in range(10):                     # past the 8-slot rings
+        phi = T._decode_backbone(params, tok, pos, caches, cfg)
+        tok = T._decode_head(params, phi, cfg, 1, "pqtopk")[0][:, 0]
+    want = T._decode_head(params, phi, cfg, 64, "pqtopk")
+    for method in ("pqtopk_fused", "pqtopk_kernel", "pqtopk_pruned"):
+        before = (tkernel.pq_topk_fused_cuda.launches,
+                  tkernel.pq_scores_cuda.launches)
+        got = T._decode_head(params, phi, cfg, 64, method)
+        _bits_equal(got, want)
+        if method == "pqtopk_fused":
+            assert (tkernel.pq_topk_fused_cuda.launches,
+                    tkernel.pq_scores_cuda.launches) == (before[0] + 1,
+                                                         before[1])
+        if method == "pqtopk_kernel":
+            assert (tkernel.pq_topk_fused_cuda.launches,
+                    tkernel.pq_scores_cuda.launches) == (before[0],
+                                                         before[1] + 1)

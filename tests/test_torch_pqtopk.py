@@ -125,13 +125,15 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def _config_widths():
-    """(arch, m, b, code bytes, N) of every config the port ships."""
+    """(arch, m, b, code bytes, N) of every config the port ships (an
+    LM's PQ head scores its vocabulary)."""
     out = []
     for arch in sorted(tconfigs._REGISTRY):
         model = tconfigs.get_config(arch).model
-        pq = model.pq
+        lm = isinstance(model, tconfigs.LMConfig)
+        pq = model.pq_head if lm else model.pq
         out.append((arch, pq.m, pq.b, np.dtype(pq.code_dtype).itemsize,
-                    model.n_items))
+                    model.vocab if lm else model.n_items))
     return out
 
 

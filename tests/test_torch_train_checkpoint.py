@@ -11,6 +11,7 @@ injected failure (``--reduced --device cpu``), the example at a small
 size, and the twin of ``tests/test_system.py`` (150 steps: the loss falls
 below 0.7 of the first, NDCG@10 beats random, the scoring methods agree).
 """
+import dataclasses
 import json
 import os
 import re
@@ -214,7 +215,7 @@ def test_port_checkpoint_restores_in_reference(reference_run, tmp_path):
 def test_bfloat16_moments_cross(tmp_path):
     """bfloat16 moments: the port writes the reference's bytes and dtype
     names, and restores the reference's file bit for bit (the reference's
-    own restore of such a file fails in numpy's cast, ROADMAP C7)."""
+    own restore of such a file fails in numpy's cast, ROADMAP C8)."""
     params = {"w": np.linspace(-1, 1, 12, dtype=np.float32).reshape(3, 4)}
     cfg = jopt.AdamWConfig(moment_dtype="bfloat16")
     js = jopt.adamw_init(params, cfg)
@@ -313,9 +314,21 @@ def test_launcher_needs_a_card_or_cpu(monkeypatch):
 
 @pytest.mark.parametrize("family", ["gnn", "lm"])
 def test_launcher_other_families_name_the_roadmap(family):
-    arch = tcfg.ArchConfig(arch_id="x", family=family, model=None, shapes=())
-    with pytest.raises(NotImplementedError, match="A 7"):
-        ttrain.make_data(arch, 8, device="cpu")
+    """The GNN family (ROADMAP A 7c) and mixture-of-experts LMs (A 7b)
+    are refused, each naming its queue entry."""
+    if family == "gnn":
+        arch = tcfg.ArchConfig(arch_id="x", family=family, model=None,
+                               shapes=())
+        with pytest.raises(NotImplementedError, match="A 7c"):
+            ttrain.make_data(arch, 8, device="cpu")
+        return
+    dense = tcfg.get_reduced("qwen2.5-14b")
+    arch = dataclasses.replace(dense, model=dataclasses.replace(
+        dense.model, moe=tcfg.MoEConfig(n_experts=4, top_k=2,
+                                        d_ff_expert=32)))
+    _, _, init_fn = ttrain.make_data(arch, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="A 7b"):
+        init_fn(torch.Generator().manual_seed(0))
 
 
 def test_launcher_trains_recsys_on_cpu(capsys):
