@@ -63,7 +63,18 @@ scores-kernel and pruned heads bit-identical to plain ``pqtopk`` at
 k=64 and 8, launches counted), both kernels at the int32 vocabulary
 shape, ``DecodeEngine`` with the fused head (form (a) once a step), the
 ring past its wrap against the windowed prefill, and the card against
-the CPU; then qwen2.5-14b cut to 2 layers on the stacked-cache path.  Both kernel sources are built at once, one
+the CPU; then qwen2.5-14b cut to 2 layers on the stacked-cache path.
+After the recsys models, the mixture-of-experts LMs (``moe_phase``):
+qwen3-moe-30b-a3b at full width cut to 4 layers at ``decode_32k`` (every
+head bit-identical to plain ``pqtopk``, launches counted and added to the
+LM-head records; the sort dispatch against the dense one on every MoE
+layer's input, in bf16 and cast to f32; ``DecodeEngine``; the card
+against the CPU; both kernels at its vocabulary shape; one AdamW step at
+2 layers) and dbrx-132b cut to 2 layers; then GraphSAGE (``gnn_phase``):
+``minibatch_lg`` with its edges cut tenfold (host, copy and card split),
+``ogb_products`` at full size (step ms, peak memory, a profile),
+``full_graph_sm`` and ``molecule`` against the CPU, and the train
+launcher.  Both kernel sources are built at once, one
 nvcc each; a pqtopk instance for a width the configs use (m = 2, 4, 6, 8)
 with a stack frame fails the run.  Prints the card's name and power limit,
 the pqtopk launch plans, kernel and per-method timings, a JSON line of
@@ -2614,7 +2625,7 @@ def lm_vs_cpu(params, cpu_params, cfg, toks, dev):
             pc = T._decode_backbone(cpu_params, torch.from_numpy(toks[pos]),
                                     pos, caches_c, cfg)
     rel, mx = rel_err(pg.cpu(), pc)
-    print(f"lm card vs CPU gemma3-27b {cfg.dtype}: B=2, {CPU_STEPS} steps, "
+    print(f"lm card vs CPU {cfg.name} {cfg.dtype}: B=2, {CPU_STEPS} steps, "
           f"phi rel {rel:.3e} max abs {mx:.3e} (tolerance rel {tol}; "
           f"{time.monotonic() - t0:.1f}s)")
     if not rel <= tol:
@@ -2676,6 +2687,62 @@ def lm_engine(params, cfg, dev, n_slots, max_len):
     return {"tokens_per_s": n_tok / wall, "launches": counts}
 
 
+def vocab_kernels(label, head, phi, n_sms):
+    """Both pqtopk kernels at an LM's vocabulary head: S from ``phi`` on
+    the head's int32 codes, ``pq_scores`` and form (a) at k =
+    ``LM_KS[0]``, each bit-exact against its plain version, timed (device
+    time), its plain version and library call timed, and bounded.  ->
+    {kernel: record fields but ``launches``}."""
+    import torch
+    from repro_torch.core import scoring
+    from repro_torch.kernels.pqtopk import kernel, ops, ref
+    codes = head["codes"]
+    s = scoring.subid_scores(head["sub_emb"], phi).contiguous()
+    n, m = codes.shape
+    bq, _, b = s.shape
+    k = LM_KS[0]
+    tile = kernel.DEFAULT_TILE
+    dev = codes.device
+    idx = torch.arange(ops.n_tiles(n, tile), dtype=torch.int32, device=dev)
+    rec = {}
+    err = compare(f"{label} pq_scores", (kernel.pq_scores_cuda(codes, s),),
+                  (ref.pq_scores(codes, s),))
+    flat = codes.long() + torch.arange(m, device=dev) * b
+    table = s.permute(1, 2, 0).reshape(m * b, bq).contiguous()
+    bnd, by, terms = bound_ms(n * m * 4 + bq * m * b * 4 + bq * n * 4,
+                              bq * n * (m - 1), bq * n * m, n_sms)
+    rec["pq_scores"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: kernel.pq_scores_cuda(codes, s), 20,
+                      graph=True),
+        "plain_ms": time_ms(lambda: ref.pq_scores(codes, s), 3),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": time_ms(lambda: torch.nn.functional.embedding_bag(
+            flat, table, mode="sum"), 20, graph=True)}
+    print(f"bound {label} pq_scores: {terms} ms on {n_sms} SMs")
+    err = compare(f"{label} pq_topk_fused",
+                  kernel.pq_topk_fused_cuda(codes, s, k, idx, n_items=n,
+                                            tile=tile),
+                  ref.pq_topk_slots(codes, s, k, idx, n_items=n, tile=tile))
+    bnd, by, terms = bound_ms(
+        n * m * 4 + bq * m * b * 4 + idx.numel() * 4
+        + bq * idx.numel() * k * 8, bq * n * (m - 1), bq * n * m, n_sms)
+    rec["pq_topk_fused"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: kernel.pq_topk_fused_cuda(
+            codes, s, k, idx, n_items=n, tile=tile), 20, graph=True),
+        "plain_ms": time_ms(lambda: ref.pq_topk_slots(
+            codes, s, k, idx, n_items=n, tile=tile), 3),
+        "bound_ms": bnd, "bound_by": by, "library_ms": None}
+    print(f"bound {label} pq_topk_fused: {terms} ms on {n_sms} SMs")
+    for name, r in rec.items():
+        print(f"kernel {name} ({label}: B={bq}, N={n}, m={m}, b={b}, "
+              f"{codes.dtype}, k={k}): {r['ms']:.4f}ms plain "
+              f"{r['plain_ms']:.4f}ms bound {r['bound_ms']:.4f}ms "
+              f"({r['bound_by']}) library {r['library_ms']}")
+    return rec
+
+
 def lm_phase(dev, n_sms):
     """The LM family on the card (ROADMAP A 7a): gemma3-27b at full width
     cut to 6 layers (one 5:1 period) at ``decode_32k`` (B=128, 32,768
@@ -2689,7 +2756,6 @@ def lm_phase(dev, n_sms):
     import torch
     from repro_torch.core import scoring
     from repro_torch.interop import to_device
-    from repro_torch.kernels.pqtopk import kernel, ops, ref
     from repro_torch.models import transformer as T
     t_phase = time.monotonic()
     print(f"lm phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB held "
@@ -2714,49 +2780,8 @@ def lm_phase(dev, n_sms):
     # ---- 2. the vocabulary kernels at the decode shape ------------------
     head = params["pq_head"]
     codes = head["codes"]
-    s = scoring.subid_scores(head["sub_emb"], phi).contiguous()
-    n, m = codes.shape
-    b = s.shape[2]
-    k = LM_KS[0]
-    tile = kernel.DEFAULT_TILE
-    idx = torch.arange(ops.n_tiles(n, tile), dtype=torch.int32, device=dev)
-    rec = {}
-    err = compare("lm pq_scores", (kernel.pq_scores_cuda(codes, s),),
-                  (ref.pq_scores(codes, s),))
-    flat = codes.long() + torch.arange(m, device=dev) * b
-    table = s.permute(1, 2, 0).reshape(m * b, bq).contiguous()
-    bnd, by, terms = bound_ms(n * m * 4 + bq * m * b * 4 + bq * n * 4,
-                              bq * n * (m - 1), bq * n * m, n_sms)
-    rec["pq_scores"] = {
-        "max_abs_err": err,
-        "ms": time_ms(lambda: kernel.pq_scores_cuda(codes, s), 20,
-                      graph=True),
-        "plain_ms": time_ms(lambda: ref.pq_scores(codes, s), 3),
-        "bound_ms": bnd, "bound_by": by,
-        "library_ms": time_ms(lambda: torch.nn.functional.embedding_bag(
-            flat, table, mode="sum"), 20, graph=True)}
-    print(f"bound lm pq_scores: {terms} ms on {n_sms} SMs")
-    err = compare("lm pq_topk_fused",
-                  kernel.pq_topk_fused_cuda(codes, s, k, idx, n_items=n,
-                                            tile=tile),
-                  ref.pq_topk_slots(codes, s, k, idx, n_items=n, tile=tile))
-    bnd, by, terms = bound_ms(
-        n * m * 4 + bq * m * b * 4 + idx.numel() * 4
-        + bq * idx.numel() * k * 8, bq * n * (m - 1), bq * n * m, n_sms)
-    rec["pq_topk_fused"] = {
-        "max_abs_err": err,
-        "ms": time_ms(lambda: kernel.pq_topk_fused_cuda(
-            codes, s, k, idx, n_items=n, tile=tile), 20, graph=True),
-        "plain_ms": time_ms(lambda: ref.pq_topk_slots(
-            codes, s, k, idx, n_items=n, tile=tile), 3),
-        "bound_ms": bnd, "bound_by": by, "library_ms": None}
-    print(f"bound lm pq_topk_fused: {terms} ms on {n_sms} SMs")
-    for name, r in rec.items():
-        print(f"kernel {name} (lm head: B={bq}, N={n}, m={m}, b={b}, "
-              f"{codes.dtype}, k={k}): {r['ms']:.4f}ms plain "
-              f"{r['plain_ms']:.4f}ms bound {r['bound_ms']:.4f}ms "
-              f"({r['bound_by']}) library {r['library_ms']}")
-    del caches, s, flat, table, phi
+    rec = vocab_kernels("lm head", head, phi, n_sms)
+    del caches, phi
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2821,6 +2846,459 @@ def lm_phase(dev, n_sms):
         r["launches"] = sum(parts.values())
         print(f"lm launches {name}: {r['launches']} ({parts})")
     return rec
+
+
+# ---- mixture-of-experts LMs: decode through the PQ vocabulary head ----
+
+MOE_SORT_LEN = 4096                 # slots of the sort-against-dense steps
+# The sort impl against the dense one, rel (each MoE layer's output, and
+# phi after LM_STEPS steps), measured on the card (PERF.md, section 6):
+# in bfloat16 the sort impl adds each token's expert outputs in bfloat16,
+# the dense one in float32 (FFN 4.7e-3, phi 2.2e-2 after 3 steps of 4
+# layers); with the weights cast to float32 only the sum order differs,
+# so the limit there is the LM phase's float32 one (LM_REL_TOL).
+MOE_SORT_TOL = {"bfloat16": 5e-2, "float32": 3e-5}
+MOE_TRAIN_B, MOE_TRAIN_S = 8, 64    # one AdamW step; S = the launcher's
+
+
+def moe_layer_inputs(params, cfg, token, pos, caches):
+    """One decode step (the caches written in place) with each MoE layer's
+    input recorded -> (phi, [(layer's moe params, its input)])."""
+    from repro_torch.models import moe as M, transformer as T
+    seen = []
+    real = M.moe_ffn
+
+    def spy(p, mcfg, x, act, impl="dense"):
+        seen.append((p, x))
+        return real(p, mcfg, x, act, impl)
+
+    M.moe_ffn = spy
+    try:
+        phi = T._decode_backbone(params, token, pos, caches, cfg)
+    finally:
+        M.moe_ffn = real
+    return phi, seen
+
+
+def moe_routing_check(what, cfg, seen):
+    """On each recorded MoE input: the dense dispatch and the sort
+    dispatch keep the same (token, expert) pairs, and the two impls'
+    outputs agree within ``MOE_SORT_TOL[cfg.dtype]``.  -> (pairs kept,
+    pairs chosen, worst rel error)."""
+    import torch
+    from repro_torch.models import moe as M
+    mc = cfg.moe
+    kept = chosen = 0
+    worst = 0.0
+    for p, x in seen:
+        b, s, d = x.shape
+        g, tg = M._groups(b * s)
+        c = M._capacity(tg, mc)
+        _, gates, sel = M._route(p, mc, x.reshape(g, tg, d))
+        dispatch, _ = M._dense_dispatch(sel, gates, mc.n_experts, c)
+        slot, st, _, keep, _ = M._sort_dispatch(sel, gates, mc.n_experts, c)
+        by_sort = torch.zeros((g, tg, mc.n_experts), dtype=torch.bool,
+                              device=x.device)
+        rows = torch.arange(g, device=x.device)[:, None].expand_as(st)
+        by_sort[rows[keep], st[keep], torch.div(
+            slot[keep], c, rounding_mode="floor")] = True
+        if not torch.equal(dispatch.sum(-1) > 0, by_sort):
+            raise AssertionError(f"{what}: the dense and sort dispatches "
+                                 "keep different pairs")
+        kept += int(keep.sum())
+        chosen += keep.numel()
+        dense = M.moe_ffn(p, mc, x, cfg.act, impl="dense")[0]
+        worst = max(worst, rel_err(M.moe_ffn(p, mc, x, cfg.act,
+                                             impl="sort")[0], dense)[0])
+    if not worst <= MOE_SORT_TOL[cfg.dtype]:
+        raise AssertionError(f"{what}: sort against dense rel {worst}")
+    return kept, chosen, worst
+
+
+def moe_sort_steps(params, cfg, tokens, dev):
+    """``LM_STEPS`` decode steps with each impl from fresh caches of
+    ``MOE_SORT_LEN`` slots: routing checked on every MoE input of the
+    dense steps, each step's phi of the sort impl within
+    ``MOE_SORT_TOL[cfg.dtype]`` of the dense impl's, and each impl's
+    backbone ms (host clock, synchronized, median)."""
+    import torch
+    from repro_torch.models import transformer as T
+    bq = tokens.shape[1]
+    scfg = replace(cfg, moe_impl="sort")
+    caches = {impl: T.init_caches(cfg, bq, MOE_SORT_LEN, device=dev)
+              for impl in ("dense", "sort")}
+    ms = {"dense": [], "sort": []}
+    kept = chosen = 0
+    worst_ffn = worst_phi = 0.0
+    with torch.no_grad():
+        for pos in range(LM_STEPS):
+            phi_d, seen = moe_layer_inputs(params, cfg, tokens[pos], pos,
+                                           caches["dense"])
+            k_, c_, w_ = moe_routing_check(f"moe {cfg.name} step {pos}",
+                                           cfg, seen)
+            kept, chosen, worst_ffn = kept + k_, chosen + c_, max(
+                worst_ffn, w_)
+            del seen
+            phi_s = T._decode_backbone(params, tokens[pos], pos,
+                                       caches["sort"], scfg)
+            worst_phi = max(worst_phi, rel_err(phi_s, phi_d)[0])
+        for impl, c in caches.items():
+            icfg = scfg if impl == "sort" else cfg
+            for _ in range(LM_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                T._decode_backbone(params, tokens[0], 0, c, icfg)
+                torch.cuda.synchronize()
+                ms[impl].append((time.perf_counter() - t0) * 1e3)
+    tol = MOE_SORT_TOL[cfg.dtype]
+    print(f"moe sort {cfg.name} {cfg.dtype}: B={bq}, {MOE_SORT_LEN} slots, "
+          f"{LM_STEPS} steps: dense and sort dispatches keep the same pairs ({kept} of "
+          f"{chosen} chosen; capacity {cfg.moe.capacity_factor}), FFN rel "
+          f"{worst_ffn:.3e}, phi rel {worst_phi:.3e} (tolerance rel "
+          f"{tol}); backbone ms dense "
+          f"{statistics.median(ms['dense']):.3f} sort "
+          f"{statistics.median(ms['sort']):.3f}")
+    if not worst_phi <= tol:
+        raise AssertionError(f"moe sort {cfg.name}: phi rel {worst_phi}")
+
+
+def moe_train_step(dev):
+    """One AdamW step of qwen3-moe-30b-a3b at full width cut to 2 layers,
+    B=``MOE_TRAIN_B``, S=``MOE_TRAIN_S``: step ms (host clock,
+    synchronized; a first step, then the timed one), loss, aux (finite,
+    above 0.5 a layer) and peak memory above what was held."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt_lib, train_loop
+    _, cfg, params = lm_model("qwen3-moe-30b-a3b", 2, dev)
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2,
+                               moment_dtype=cfg.moment_dtype)
+    step = train_loop.make_train_step(lambda p, b: T.lm_loss(p, b, cfg),
+                                      ocfg)
+    opt = train_loop.init_opt_state(params, ocfg)
+    tok = np.random.default_rng(9).integers(
+        0, cfg.vocab, (2, MOE_TRAIN_B, MOE_TRAIN_S + 1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ms = []
+    for i in range(2):
+        batch = {"tokens": torch.from_numpy(tok[i, :, :-1].astype(np.int32))
+                 .to(dev),
+                 "targets": torch.from_numpy(tok[i, :, 1:].astype(np.int32))
+                 .to(dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    loss, aux = float(metrics["loss"]), float(metrics["aux"])
+    print(f"moe train {cfg.name}: {cfg.n_layers} layers, B={MOE_TRAIN_B} "
+          f"S={MOE_TRAIN_S}, AdamW: step ms {ms[0]:.3f} (first) "
+          f"{ms[1]:.3f}; loss {loss:.4f} nll {float(metrics['nll']):.4f} "
+          f"aux {aux:.4f}; peak {peak / 2**30:.3f} GiB "
+          f"({(peak - held) / 2**30:.3f} GiB above the "
+          f"{held / 2**30:.3f} GiB held)")
+    if not (np.isfinite(loss) and aux > 0.5 * cfg.n_layers):
+        raise AssertionError(f"moe train: loss {loss}, aux {aux}")
+    del params, opt, step
+
+
+def moe_phase(dev, n_sms):
+    """The mixture-of-experts LMs on the card (ROADMAP A 7b):
+    qwen3-moe-30b-a3b at full width cut to 4 layers at ``decode_32k``
+    (B=128, 32,768 slots; dense dispatch): decode steps with every head,
+    the sort dispatch against the dense one, ``DecodeEngine``, the card
+    against the CPU (bf16 and cast to f32), both vocabulary kernels at
+    its head shape, one AdamW step at 2 layers; then dbrx-132b cut to 2
+    layers at B=128, 4,096 slots.  -> {kernel: launches counted on the MoE
+    heads}."""
+    import collections
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.interop import to_device
+    from repro_torch.models import transformer as T
+    t_phase = time.monotonic()
+    print(f"moe phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB held "
+          "at its start")
+    launched = collections.Counter()
+    full, cfg, params = lm_model("qwen3-moe-30b-a3b", 4, dev)
+    mc = cfg.moe
+    dims = full.shape("decode_32k").dims
+    bq, max_len = dims["global_batch"], dims["seq_len"]
+    expert_gb = _nbytes(T._layer(params, cfg, 0)["moe"]) / 1e9
+    print(f"moe {cfg.name}: {mc.n_experts} experts top-{mc.top_k}, "
+          f"d_ff_expert {mc.d_ff_expert}, capacity factor "
+          f"{mc.capacity_factor} ({expert_gb:.2f} GB of experts a layer)")
+    rng = np.random.default_rng(6)
+
+    # ---- 1. decode steps at decode_32k, every head ----------------------
+    caches = T.init_caches(cfg, bq, max_len, device=dev)
+    print(f"moe caches {cfg.name} B={bq} max_len {max_len}: stacked "
+          f"{tuple(caches['k'].shape)}, {_nbytes(caches) / 1e9:.2f} GB")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (LM_STEPS, bq))
+                              .astype(np.int32)).to(dev)
+    phi, _, counts = lm_steps(cfg.name, params, cfg, caches, tokens)
+    launched.update(counts)
+    profile_step(lambda: T._decode_backbone(params, tokens[0], 0, caches,
+                                            cfg),
+                 label=f"moe profile ({cfg.name} backbone, B={bq}, one step)")
+    del caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 2. the vocabulary kernels at this head's shape ------------------
+    rec = vocab_kernels("moe head", params["pq_head"], phi, n_sms)
+    del phi
+
+    # ---- 3. the sort dispatch against the dense one, bf16 and f32 --------
+    moe_sort_steps(params, cfg, tokens, dev)
+    moe_sort_steps(*lm_float32(params, cfg), tokens, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 4. DecodeEngine, the fused head ---------------------------------
+    launched.update(lm_engine(params, cfg, dev, bq, max_len)["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 5. the card against the CPU, bf16 and cast to f32 ---------------
+    cpu_toks = rng.integers(0, cfg.vocab, (CPU_STEPS, 2)).astype(np.int32)
+    t0 = time.monotonic()
+    lm_vs_cpu(params, to_device(params, "cpu"), cfg, cpu_toks, dev)
+    p32, cfg32 = lm_float32(params, cfg)
+    lm_vs_cpu(p32, to_device(p32, "cpu"), cfg32, cpu_toks, dev)
+    print(f"moe card vs CPU: {time.monotonic() - t0:.1f}s")
+    del p32, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 6. one training step ---------------------------------------------
+    moe_train_step(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 7. dbrx-132b: 16 wide experts ------------------------------------
+    _, dcfg, dparams = lm_model("dbrx-132b", 2, dev)
+    dcaches = T.init_caches(dcfg, bq, 4096, device=dev)
+    print(f"moe caches {dcfg.name} B={bq} max_len 4096: stacked "
+          f"{tuple(dcaches['k'].shape)}, {_nbytes(dcaches) / 1e9:.2f} GB")
+    dtok = torch.from_numpy(rng.integers(0, dcfg.vocab, (LM_STEPS, bq))
+                            .astype(np.int32)).to(dev)
+    launched.update(lm_steps(dcfg.name, dparams, dcfg, dcaches, dtok)[2])
+    del dparams, dcaches
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, r in rec.items():
+        print(f"kernel {name} (moe head): {r['ms']:.4f}ms plain "
+              f"{r['plain_ms']:.4f}ms bound {r['bound_ms']:.4f}ms "
+              f"({r['bound_by']}) library {r['library_ms']} launches "
+              f"{launched.get(name, 0)} (the checked head calls of both "
+              "models and the engine's fused head)")
+    print(f"moe phase: {time.monotonic() - t_phase:.1f}s")
+    return dict(launched)
+
+
+# ---- GraphSAGE: sampled, full-batch and batched-graph training ---------
+
+GNN_ARCH = "graphsage-reddit"
+GNN_EDGE_CUT = 10                   # minibatch_lg's edges, cut tenfold
+GNN_MB_STEPS = 20
+GNN_TRAIN_NODES = 196_615           # ogbn-products' train split
+GNN_TOL = 1e-5                      # card against CPU, rel, loss and grads
+
+
+def gnn_config(dims):
+    """graphsage-reddit with the shape's class count (the reference's
+    ``launch/steps.py`` rule)."""
+    from repro_torch.configs.base import get_config
+    return replace(get_config(GNN_ARCH).model, n_classes=dims["n_classes"])
+
+
+def gnn_minibatch(dev, shape):
+    """``minibatch_lg``: 20 AdamW steps of fanout-sampled batches, each
+    step split into host sampling and gather, the copy to the card, and
+    the step on the card (host clock, synchronized; medians)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import graph as G
+    from repro_torch.models import gnn as GNN
+    from repro_torch.training import optimizer as opt_lib, train_loop
+    d = shape.dims
+    n_edges = d["n_edges"] // GNN_EDGE_CUT
+    t0 = time.monotonic()
+    g = G.synthetic_graph(d["n_nodes"], n_edges, d["d_feat"],
+                          d["n_classes"], seed=0)
+    sampler = G.NeighborSampler(g)
+    t_graph = time.monotonic() - t0
+    cfg = gnn_config(d)
+    params = GNN.init_gnn(torch.Generator(device=dev).manual_seed(0), cfg,
+                          d["d_feat"])
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2,
+                               total_steps=GNN_MB_STEPS)
+    step = train_loop.make_train_step(
+        lambda p, b: GNN.gnn_minibatch_loss(p, b, cfg), ocfg)
+    opt = train_loop.init_opt_state(params, ocfg)
+    rng = np.random.default_rng(1)
+    split = {"host": [], "copy": [], "device": []}
+    losses = []
+    for _ in range(GNN_MB_STEPS):
+        t0 = time.perf_counter()
+        batch = sampler.sample_batch(
+            rng.integers(0, g.n_nodes, d["batch_nodes"]), d["fanout"], rng)
+        t1 = time.perf_counter()
+        dbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        params, opt, metrics = step(params, opt, dbatch)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for name, a, b in (("host", t0, t1), ("copy", t1, t2),
+                           ("device", t2, t3)):
+            split[name].append((b - a) * 1e3)
+        losses.append(float(metrics["loss"]))
+    nbytes = sum(v.nbytes for v in batch.values())
+    med = {k: statistics.median(v) for k, v in split.items()}
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"gnn minibatch_lg: losses {losses}")
+    print(f"gnn minibatch_lg {cfg.name}: N={g.n_nodes}, E={n_edges} (cut "
+          f"{GNN_EDGE_CUT}x from {d['n_edges']}), d_feat {d['d_feat']}, "
+          f"{cfg.n_classes} classes, batch {d['batch_nodes']} fanout "
+          f"{d['fanout']}; graph and sampler made on the host in "
+          f"{t_graph:.1f}s; {GNN_MB_STEPS} AdamW steps, losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; median ms: host sampling "
+          f"and gather {med['host']:.3f}, copy {med['copy']:.3f} "
+          f"({nbytes / 1e6:.1f} MB, {nbytes / med['copy'] / 1e6:.2f} GB/s), "
+          f"step on the card {med['device']:.3f} (host clock)")
+
+
+def gnn_full_batch(dev, shape):
+    """``ogb_products`` at full size: a full-batch ``gnn_loss`` forward and
+    backward and an AdamW step, twice (host clock, synchronized), with the
+    peak memory above what was held; then one more under the profiler."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.data import graph as G
+    from repro_torch.models import gnn as GNN
+    from repro_torch.training import optimizer as opt_lib, train_loop
+    d = shape.dims
+    t0 = time.monotonic()
+    g = G.synthetic_graph(d["n_nodes"], d["n_edges"], d["d_feat"],
+                          d["n_classes"], seed=0)
+    mask = np.zeros(g.n_nodes, np.float32)
+    mask[np.random.default_rng(2).permutation(g.n_nodes)[
+        :GNN_TRAIN_NODES]] = 1.0
+    t_graph = time.monotonic() - t0
+    batch = {"feats": g.feats, "edges": g.edges, "labels": g.labels,
+             "label_mask": mask}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    del g
+    cfg = gnn_config(d)
+    params = GNN.init_gnn(torch.Generator(device=dev).manual_seed(0), cfg,
+                          d["d_feat"])
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    step = train_loop.make_train_step(
+        lambda p, b: GNN.gnn_loss(p, b, cfg), ocfg)
+    opt = train_loop.init_opt_state(params, ocfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ms, losses = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"gnn ogb_products: losses {losses}")
+    profile_step(lambda: step(params, opt, batch),
+                 label="gnn profile (ogb_products, one full-batch step)")
+    print(f"gnn ogb_products {cfg.name}: N={d['n_nodes']}, "
+          f"E={d['n_edges']}, d_feat {d['d_feat']}, {cfg.n_classes} "
+          f"classes, {GNN_TRAIN_NODES} labelled; graph made on the host in "
+          f"{t_graph:.1f}s; full-batch step (forward, backward, AdamW) ms "
+          f"{ms[0]:.3f} (first) {ms[1]:.3f}; losses {losses[0]:.4f} -> "
+          f"{losses[1]:.4f}; peak {peak / 2**30:.3f} GiB "
+          f"({(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} "
+          "GiB held)")
+    del batch, params, opt, step
+
+
+def gnn_vs_cpu(dev, shape):
+    """``full_graph_sm`` (full batch) or ``molecule`` (128 small graphs):
+    the loss and every gradient on the card against the CPU from the same
+    weights and batch, each within ``GNN_TOL`` (rel)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import graph as G
+    from repro_torch.models import gnn as GNN
+    from repro_torch.training import tree
+    d = shape.dims
+    cfg = gnn_config(d)
+    if shape.name == "molecule":
+        batch = G.molecule_batch(d["graph_batch"], d["n_nodes"],
+                                 d["n_edges"], d["d_feat"], d["n_classes"],
+                                 seed=3)
+        loss_fn = GNN.gnn_graph_batch_loss
+    else:
+        g = G.synthetic_graph(d["n_nodes"], d["n_edges"], d["d_feat"],
+                              d["n_classes"], seed=2)
+        batch = {"feats": g.feats, "edges": g.edges, "labels": g.labels,
+                 "label_mask": np.random.default_rng(4).integers(
+                     0, 2, g.n_nodes).astype(np.float32)}
+        loss_fn = GNN.gnn_loss
+    params = GNN.init_gnn(torch.Generator().manual_seed(0), cfg, d["d_feat"])
+    out = {}
+    for where in ("cpu", dev):
+        p = tree.tree_map(
+            lambda x: x.detach().to(where).requires_grad_(True), params)
+        leaves = tree.leaves(p)
+        loss, _ = loss_fn(p, {k: torch.from_numpy(v).to(where)
+                              for k, v in batch.items()}, cfg)
+        loss.backward()
+        out[str(where)] = [loss.detach().cpu()] + [x.grad.cpu()
+                                                   for x in leaves]
+    errs = [rel_err(a, b)[0] for a, b in zip(out[str(dev)], out["cpu"],
+                                             strict=True)]
+    print(f"gnn card vs CPU {shape.name}: loss {float(out['cpu'][0]):.6f}, "
+          f"rel loss {errs[0]:.3e}, gradients max rel {max(errs[1:]):.3e} "
+          f"over {len(errs) - 1} leaves (tolerance rel {GNN_TOL})")
+    if not max(errs) <= GNN_TOL:
+        raise AssertionError(f"gnn card vs CPU {shape.name}: rel {errs}")
+
+
+def gnn_phase(dev):
+    """GraphSAGE on the card (ROADMAP A 7c), graphsage-reddit at full
+    width (2 layers, d_hidden 128, mean aggregator): ``minibatch_lg``
+    (edges cut tenfold), ``ogb_products`` at full size, ``full_graph_sm``
+    and ``molecule`` against the CPU, and the train launcher."""
+    import gc
+    import torch
+    from repro_torch.configs.base import get_config
+    t_phase = time.monotonic()
+    arch = get_config(GNN_ARCH)
+    for name, fn in (("minibatch_lg", gnn_minibatch),
+                     ("ogb_products", gnn_full_batch),
+                     ("full_graph_sm", gnn_vs_cpu), ("molecule", gnn_vs_cpu)):
+        t0 = time.monotonic()
+        fn(dev, arch.shape(name))
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"gnn {name}: {time.monotonic() - t0:.1f}s")
+    res, _, peak, held, wall = run_launcher(
+        ["--arch", GNN_ARCH, "--steps", "30", "--batch", "1024"])
+    launcher_line(f"{GNN_ARCH} launcher", res, peak, held, wall, 1024)
+    print(f"gnn phase: {time.monotonic() - t_phase:.1f}s")
 
 
 EB_SRC = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
@@ -3437,6 +3915,13 @@ def main(argv=None) -> int:
                      "replaces": f"src/repro/kernels/pqtopk/kernel.py:{line}",
                      **lm[name]})
     bags = recsys_models(dev, n_sms)
+    moe = moe_phase(dev, n_sms)
+    for r in recs:      # the MoE heads' launches join the LM-head rows
+        if r["name"].endswith("_lm_head"):
+            r["launches"] += moe.get(r["name"][:-len("_lm_head")], 0)
+            print(f"lm launches {r['name']} with the MoE heads: "
+                  f"{r['launches']}")
+    gnn_phase(dev)
     bulk = bags["bst serve_bulk"]
     recs.append({
         "name": "embedding_bag", "route": "cuda", "source": EB_SRC,

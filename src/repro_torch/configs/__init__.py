@@ -1,6 +1,10 @@
-from repro_torch.configs.base import (ArchConfig, AttentionConfig, PQConfig,
-                                      RecsysConfig, SeqRecConfig, ShapeSpec,
-                                      get_config, get_reduced)
+from repro_torch.configs.base import (
+    ArchConfig, AttentionConfig, GNNConfig, LMConfig, MoEConfig, PQConfig,
+    RecsysConfig, SeqRecConfig, ShapeSpec, get_config, get_reduced, list_archs,
+)
 
-__all__ = ["ArchConfig", "AttentionConfig", "PQConfig", "RecsysConfig",
-           "SeqRecConfig", "ShapeSpec", "get_config", "get_reduced"]
+__all__ = [
+    "ArchConfig", "AttentionConfig", "GNNConfig", "LMConfig", "MoEConfig",
+    "PQConfig", "RecsysConfig", "SeqRecConfig", "ShapeSpec",
+    "get_config", "get_reduced", "list_archs",
+]

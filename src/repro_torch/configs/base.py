@@ -1,12 +1,11 @@
-"""Config dataclasses + the seqrec, recsys and dense-LM arch registry.
+"""Config dataclasses + the arch registry (LM, GNN, recsys, seqrec).
 
-A framework-free copy of the reference's ``configs/base.py``, cut to the
-classes the ported paths read (``PQConfig``, ``MoEConfig``,
-``AttentionConfig``, ``LMConfig``, ``SeqRecConfig``, ``RecsysConfig``,
-``ArchConfig``).  Field names, defaults and validation are unchanged, so
-a config built here describes the same model as its namesake in the
-reference.  ``LMConfig.moe`` is carried as a field; the port's
-transformer refuses an LM that sets it (MoE is ROADMAP A 7b).
+A framework-free copy of the reference's ``configs/base.py``: ``PQConfig``,
+``MoEConfig``, ``AttentionConfig``, ``LMConfig``, ``SeqRecConfig``,
+``RecsysConfig``, ``GNNConfig``, ``ArchConfig`` and the shape lists.
+Field names, defaults and validation are unchanged, so a config built
+here describes the same model as its namesake in the reference, and
+``list_archs()`` returns the reference's ids in the reference's order.
 """
 from __future__ import annotations
 
@@ -228,6 +227,19 @@ class RecsysConfig:
 
 
 @dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int = 2
+    d_hidden: int = 128
+    aggregator: str = "mean"
+    sample_sizes: Tuple[int, ...] = (25, 10)
+    n_classes: int = 41
+    dtype: str = "float32"
+    param_dtype: str = "float32"
+    moment_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class ShapeSpec:
     """One (input-shape x step-kind) cell of the reference's dry-run matrix."""
 
@@ -252,6 +264,24 @@ def lm_shapes(*, sub_quadratic: bool, decoder: bool = True
             skip_reason="" if (sub_quadratic and decoder) else (
                 "pure full-attention arch: no sub-quadratic mechanism "
                 "(DESIGN.md §4)" if decoder else encoder_skip)),
+    )
+
+
+def gnn_shapes() -> Tuple[ShapeSpec, ...]:
+    return (
+        ShapeSpec("full_graph_sm", "train",
+                  {"n_nodes": 2_708, "n_edges": 10_556, "d_feat": 1_433,
+                   "n_classes": 7}),
+        ShapeSpec("minibatch_lg", "train",
+                  {"n_nodes": 232_965, "n_edges": 114_615_892,
+                   "batch_nodes": 1_024, "fanout": (15, 10), "d_feat": 602,
+                   "n_classes": 41}),
+        ShapeSpec("ogb_products", "train",
+                  {"n_nodes": 2_449_029, "n_edges": 61_859_140,
+                   "d_feat": 100, "n_classes": 47}),
+        ShapeSpec("molecule", "train",
+                  {"n_nodes": 30, "n_edges": 64, "graph_batch": 128,
+                   "d_feat": 16, "n_classes": 2}),
     )
 
 
@@ -294,12 +324,16 @@ _REGISTRY = {
     "qwen2.5-14b": "qwen2_5_14b",
     "nemotron-4-340b": "nemotron_4_340b",
     "gemma3-27b": "gemma3_27b",
-    "sasrec-recjpq": "sasrec_recjpq",
-    "gbert4rec-recjpq": "gbert4rec_recjpq",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "dbrx-132b": "dbrx_132b",
+    "graphsage-reddit": "graphsage_reddit",
     "dcn-v2": "dcn_v2",
     "bst": "bst",
     "dien": "dien",
     "fm": "fm",
+    # the paper's own models
+    "sasrec-recjpq": "sasrec_recjpq",
+    "gbert4rec-recjpq": "gbert4rec_recjpq",
 }
 
 
@@ -324,6 +358,7 @@ def get_reduced(arch_id: str) -> ArchConfig:
 __all__ = [
     "PQConfig", "CODE_DTYPE_CAPACITY", "min_code_dtype", "MoEConfig",
     "AttentionConfig", "LMConfig", "SeqRecConfig", "RecsysConfig",
-    "ShapeSpec", "ArchConfig", "lm_shapes", "seqrec_shapes",
-    "recsys_shapes", "list_archs", "get_config", "get_reduced",
+    "GNNConfig", "ShapeSpec", "ArchConfig", "lm_shapes", "seqrec_shapes",
+    "recsys_shapes", "gnn_shapes", "list_archs", "get_config",
+    "get_reduced",
 ]

@@ -1,9 +1,10 @@
 """Parameter interop with the reference package, through numpy.
 
 ``params_from_jax`` takes a reference parameter tree — ``init_seqrec``'s,
-``init_recsys``'s for any of the four recsys kinds, or ``init_lm``'s (its
-stacked (L, ...) layer leaves, bfloat16 leaves and the PQ head with its
-pruning state) — with its leaves
+``init_recsys``'s for any of the four recsys kinds, ``init_lm``'s (its
+stacked (L, ...) layer leaves, bfloat16 leaves, an MoE layer's float32
+router beside its bfloat16 (L, E, ...) experts, and the PQ head with its
+pruning state) or ``init_gnn``'s (a list of layers) — with its leaves
 as numpy arrays (or anything ``np.asarray`` accepts) and returns the same
 tree of torch tensors: dicts stay dicts, lists (the recsys tables, cross
 layers, MLP towers, FM linear weights) stay lists, and a 0-d leaf (FM's
@@ -83,8 +84,8 @@ def _convert(tree: Any, device) -> Any:
 
 
 def params_from_jax(tree: Any, device="cpu") -> Any:
-    """A reference parameter tree (seqrec, recsys or LM, stacked layers
-    included) or LM cache state (a stacked ``{"k", "v"}`` pair or a list
+    """A reference parameter tree (seqrec, recsys, LM or GNN, stacked
+    layers included) or LM cache state (a stacked ``{"k", "v"}`` pair or a list
     of per-layer pairs) -> the port's, on ``device``, dtypes kept."""
     return _convert(tree, device)
 

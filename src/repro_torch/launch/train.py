@@ -1,5 +1,5 @@
 """Training launcher: an end-to-end loop with checkpoint/auto-resume and
-failure injection, for the seqrec, recsys and dense-LM families.
+failure injection, for the seqrec, recsys, LM and GNN families.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec-recjpq \
       --steps 200 --batch 32 --ckpt /tmp/ckpt --fail-at 120
@@ -9,7 +9,8 @@ failure injection, for the seqrec, recsys and dense-LM families.
 Weights are random (``torch.Generator().manual_seed(0)``, drawn on the
 CPU and moved to the device); the data are the reference launcher's
 synthetic streams, bit for bit (an LM's: uniform random tokens at
-sequence length 64).  ``--device``
+sequence length 64; a GNN's: fanout samples of a 2,000-node synthetic
+graph with 32 features).  ``--device``
 defaults to ``cuda`` and the launcher raises when no card is present.  A
 failure injected at a step raises before that step's batch is drawn; the
 run restarts from the newest checkpoint (after any save still being
@@ -53,8 +54,21 @@ def make_data(arch, batch_size: int, seed: int = 0, device="cuda"):
                 lambda p, b: m.ctr_loss(p, b, cfg),
                 lambda gen: m.init_recsys(gen, cfg, device=device))
     if arch.family == "gnn":
-        raise NotImplementedError(
-            "the gnn family is not ported yet (ROADMAP A 7c)")
+        from repro_torch.data.graph import NeighborSampler, synthetic_graph
+        from repro_torch.models import gnn as m
+        d_feat = 32
+        g = synthetic_graph(2000, 16000, d_feat, cfg.n_classes, seed=seed)
+        sampler = NeighborSampler(g)
+        rng = np.random.default_rng(seed)
+
+        def gen():
+            while True:
+                nodes = rng.integers(0, g.n_nodes, batch_size)
+                yield sampler.sample_batch(nodes, tuple(cfg.sample_sizes[:2]),
+                                           rng)
+
+        return (gen(), lambda p, b: m.gnn_minibatch_loss(p, b, cfg),
+                lambda gn: m.init_gnn(gn, cfg, d_feat, device=device))
     if arch.family == "lm":
         from repro_torch.models import transformer as m
         vocab, seq = cfg.vocab, 64

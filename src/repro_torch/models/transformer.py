@@ -1,9 +1,12 @@
-"""The dense decoder LM family (gemma3-27b, qwen2.5-14b, nemotron-4-340b):
-GQA + RoPE (+QK-norm, QKV-bias), sliding/global layer interleave,
-squared-ReLU / SiLU / GeGLU MLPs, remat, and the PQ-compressed retrieval
-head on the decode path (the paper's technique applied to vocabulary
-scoring) — the reference's ``models/transformer.py`` without MoE (ROADMAP
-A 7b): an LM whose config sets ``moe`` is refused.
+"""The decoder LM family (gemma3-27b, qwen2.5-14b, nemotron-4-340b, and
+the mixture-of-experts qwen3-moe-30b-a3b and dbrx-132b): GQA + RoPE
+(+QK-norm, QKV-bias), sliding/global layer interleave, dense or MoE FFN
+(``models/moe.py``, ``cfg.moe_impl``), squared-ReLU / SiLU / GeGLU MLPs,
+remat, and the PQ-compressed retrieval head on the decode path (the
+paper's technique applied to vocabulary scoring) — the reference's
+``models/transformer.py``.  The MoE layers' load-balance losses are
+summed over the layers into ``lm_hidden``'s aux; a decode step routes
+its B tokens as one group, so they share each expert's capacity.
 
 The parameter tree is the reference's.  With ``cfg.scan_layers`` every
 layer leaf is stacked on a leading L axis (``params["layers"]`` is one
@@ -29,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LMConfig
 from repro_torch.core import retrieval_head, topk as topk_lib
 from repro_torch.interop import to_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe as moe_lib
 
 Params = Dict[str, Any]
 
@@ -61,29 +64,26 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _check_dense(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts LMs are not ported yet "
-            "(ROADMAP A 7b)")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 def init_block(generator: torch.Generator, cfg: LMConfig) -> Params:
-    _check_dense(cfg)
     dtype = _dtype(cfg.param_dtype)
     dev = generator.device
-    return {
+    p = {
         "attn": attention.attention_init(generator, cfg.attention,
                                          cfg.d_model, dtype),
         "ln1": layers.norm_init(cfg.d_model, cfg.norm, dtype, dev),
         "ln2": layers.norm_init(cfg.d_model, cfg.norm, dtype, dev),
-        "mlp": layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
-                               gated=cfg.gated_mlp, dtype=dtype),
     }
+    if cfg.moe is None:
+        p["mlp"] = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                   gated=cfg.gated_mlp, dtype=dtype)
+    else:
+        p["moe"] = moe_lib.moe_init(generator, cfg.moe, cfg.d_model,
+                                    gated=cfg.gated_mlp, dtype=dtype)
+    return p
 
 
 def _stack(blocks: List[Params]) -> Params:
@@ -151,36 +151,45 @@ def _layer(params: Params, cfg: LMConfig, i: int) -> Params:
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
+def _ffn(blk: Params, cfg: LMConfig, h: torch.Tensor):
+    """The block's FFN on the normed h -> (out, load-balance aux: a
+    float32 0-d tensor, or 0.0 for a dense FFN)."""
+    if cfg.moe is None:
+        return layers.mlp(blk["mlp"], h, cfg.act), 0.0
+    return moe_lib.moe_ffn(blk["moe"], cfg.moe, h, cfg.act,
+                           impl=cfg.moe_impl)
+
+
 def _block_fwd(blk: Params, cfg: LMConfig, x: torch.Tensor,
-               is_global: bool) -> torch.Tensor:
+               is_global: bool):
     x = _grad_cast(x, _dtype(cfg.dtype))
     h = layers.apply_norm(blk["ln1"], x, cfg.norm)
     h = attention.full_attention(blk["attn"], cfg.attention, h,
                                  is_global=is_global, causal=cfg.causal)
     x = x + h
-    h = layers.apply_norm(blk["ln2"], x, cfg.norm)
-    return x + layers.mlp(blk["mlp"], h, cfg.act)
+    h, aux = _ffn(blk, cfg, layers.apply_norm(blk["ln2"], x, cfg.norm))
+    return x + h, aux
 
 
 def lm_hidden(params: Params, tokens: torch.Tensor, cfg: LMConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (hidden (B, S, d), aux_loss).  With ``cfg.remat``
-    each layer's activations are recomputed in backward
-    (``torch.utils.checkpoint``), which moves no number."""
-    _check_dense(cfg)
+    """tokens (B, S) -> (hidden (B, S, d), aux_loss summed over the
+    layers).  With ``cfg.remat`` each layer's activations are recomputed
+    in backward (``torch.utils.checkpoint``), which moves no number."""
     x = params["embed"]["table"][tokens].to(_dtype(cfg.dtype))
     flags = layer_types(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         blk = _layer(params, cfg, i)
         if remat:
-            x = checkpoint(_block_fwd, blk, cfg, x, bool(flags[i]),
-                           use_reentrant=False)
+            x, a = checkpoint(_block_fwd, blk, cfg, x, bool(flags[i]),
+                              use_reentrant=False)
         else:
-            x = _block_fwd(blk, cfg, x, bool(flags[i]))
+            x, a = _block_fwd(blk, cfg, x, bool(flags[i]))
+        aux = aux + a
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
-    # Dense FFNs add no load-balance loss.
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def unembed(params: Params, hidden: torch.Tensor, cfg: LMConfig
@@ -215,7 +224,6 @@ def init_caches(cfg: LMConfig, batch: int, max_len: int, *, device="cpu"):
     """KV caches in ``cfg.dtype``: one stacked (L, B, S, H, D) pair for an
     all-global arch with stacked layers, else a per-layer list (sliding
     layers get a ring of ``min(window, max_len)`` slots)."""
-    _check_dense(cfg)
     dtype = _dtype(cfg.dtype)
     if _uniform_layers(cfg):
         a = cfg.attention
@@ -239,7 +247,6 @@ def _decode_backbone(params: Params, token: torch.Tensor, pos, caches,
                      cfg: LMConfig) -> torch.Tensor:
     """Embed ``token`` (B,), run every layer against its cache at ``pos``
     (the caches are written in place) -> phi (B, d) float32."""
-    _check_dense(cfg)
     x = params["embed"]["table"][token[:, None]].to(_dtype(cfg.dtype))
     flags = layer_types(cfg)
     for i in range(cfg.n_layers):
@@ -249,8 +256,7 @@ def _decode_backbone(params: Params, token: torch.Tensor, pos, caches,
                                        _layer_cache(caches, cfg, i), pos,
                                        bool(flags[i]))
         x = x + h
-        h = layers.apply_norm(blk["ln2"], x, cfg.norm)
-        x = x + layers.mlp(blk["mlp"], h, cfg.act)
+        x = x + _ffn(blk, cfg, layers.apply_norm(blk["ln2"], x, cfg.norm))[0]
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return x[:, 0, :].float()
 

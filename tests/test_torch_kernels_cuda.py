@@ -754,3 +754,75 @@ def test_lm_decode_step_heads_on_the_card(cuda_device):
             assert (tkernel.pq_topk_fused_cuda.launches,
                     tkernel.pq_scores_cuda.launches) == (before[0],
                                                          before[1] + 1)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "dbrx-132b"])
+def test_moe_decode_on_the_card(cuda_device, arch):
+    """A reduced MoE LM on the card: the dense and sort dispatches route
+    alike (the same experts, the same kept pairs) and agree within float32
+    rounding (2e-5 relative); the fused head launches form (a) once a step
+    and matches plain ``pqtopk`` bit for bit at k=64."""
+    import dataclasses
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.models import moe as M, transformer as T
+    cfg = get_reduced(arch).model
+    params = T.init_lm(torch.Generator().manual_seed(0), cfg,
+                       device=cuda_device)
+    x = torch.randn((128, 1, cfg.d_model), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1))
+    blk = T._layer(params, cfg, 0)["moe"]
+    g, tg = M._groups(128)
+    _, gates, sel = M._route(blk, cfg.moe, x.reshape(g, tg, -1))
+    c = M._capacity(tg, cfg.moe)
+    dispatch, _ = M._dense_dispatch(sel, gates, cfg.moe.n_experts, c)
+    keep = M._sort_dispatch(sel, gates, cfg.moe.n_experts, c)[3]
+    assert int(dispatch.sum()) == int(keep.sum())
+    dense = M.moe_ffn(blk, cfg.moe, x, cfg.act, impl="dense")[0]
+    sort = M.moe_ffn(blk, cfg.moe, x, cfg.act, impl="sort")[0]
+    assert float((dense - sort).norm() / dense.norm()) < 2e-5
+    tok = torch.arange(4, dtype=torch.int32, device=cuda_device) * 7
+    for impl in ("dense", "sort"):
+        icfg = dataclasses.replace(cfg, moe_impl=impl)
+        caches = T.init_caches(icfg, 4, 8, device=cuda_device)
+        for pos in range(3):
+            phi = T._decode_backbone(params, tok, pos, caches, icfg)
+            want = T._decode_head(params, phi, icfg, 64, "pqtopk")
+            before = tkernel.pq_topk_fused_cuda.launches
+            got = T._decode_head(params, phi, icfg, 64, "pqtopk_fused")
+            assert tkernel.pq_topk_fused_cuda.launches == before + 1
+            _bits_equal(got, want)
+            tok = want[0][:, 0]
+
+
+def test_gnn_losses_on_the_card_match_the_cpu(cuda_device):
+    """GraphSAGE's three losses and their gradients on the card against
+    the same weights and batches on the CPU, within float32 rounding
+    (rtol=atol=1e-5): ``index_add`` adds with atomics on the card, in no
+    fixed order."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.data import graph as G
+    from repro_torch.models import gnn as M
+    from repro_torch.training import tree
+    cfg = get_reduced("graphsage-reddit").model
+    g = G.synthetic_graph(2000, 16000, 32, cfg.n_classes, seed=0)
+    rng = np.random.default_rng(1)
+    full = {"feats": g.feats, "edges": g.edges, "labels": g.labels,
+            "label_mask": rng.integers(0, 2, g.n_nodes).astype(np.float32)}
+    mini = G.NeighborSampler(g).sample_batch(
+        rng.integers(0, g.n_nodes, 64), (5, 3), rng)
+    mol = G.molecule_batch(16, 30, 64, 32, cfg.n_classes, seed=2)
+    params = M.init_gnn(torch.Generator().manual_seed(0), cfg, 32)
+    for loss, batch in ((M.gnn_loss, full), (M.gnn_minibatch_loss, mini),
+                        (M.gnn_graph_batch_loss, mol)):
+        out = {}
+        for dev in ("cpu", cuda_device):
+            p = tree.tree_map(
+                lambda x: x.detach().to(dev).requires_grad_(True), params)
+            leaves = tree.leaves(p)
+            val, _ = loss(p, {k: torch.from_numpy(v).to(dev)
+                              for k, v in batch.items()}, cfg)
+            val.backward()
+            out[str(dev)] = [val.detach().cpu()] + [x.grad.cpu()
+                                                    for x in leaves]
+        for a, b in zip(out["cuda"], out["cpu"], strict=True):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -1,5 +1,7 @@
-"""The port's dense LM family (configs, layers, attention, forward, loss,
-training launcher) against the JAX reference, on the CPU.
+"""The port's LM family (configs, layers, attention, forward, loss,
+training launcher) against the JAX reference, on the CPU: the dense
+archs and the mixture-of-experts ones (``moe_impl="dense"``, the
+configs' own; ``tests/test_torch_moe.py`` covers ``"sort"``).
 
 Each reduced model starts from the reference's own ``init_lm(PRNGKey(0))``
 with its norm scales and biases redrawn from a numpy seed (the reference
@@ -31,7 +33,9 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import attention as tattn, layers as tlayers
 from repro_torch.models import transformer as TT
 
-ARCHS = ("gemma3-27b", "qwen2.5-14b", "nemotron-4-340b")
+DENSE_ARCHS = ("gemma3-27b", "qwen2.5-14b", "nemotron-4-340b")
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "dbrx-132b")
+ARCHS = DENSE_ARCHS + MOE_ARCHS
 TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=6e-2, atol=6e-2)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -132,8 +136,7 @@ def test_configs_match_reference(arch):
                 sub_quadratic=sub, decoder=dec)] == \
                 [dataclasses.asdict(s) for s in jcfg.lm_shapes(
                     sub_quadratic=sub, decoder=dec)]
-    assert arch in tcfg.list_archs()
-    assert set(tcfg.list_archs()) <= set(jcfg.list_archs())
+    assert tcfg.list_archs() == jcfg.list_archs()
     moe = dataclasses.replace(
         tcfg.get_reduced(arch).model,
         moe=tcfg.MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
@@ -142,16 +145,6 @@ def test_configs_match_reference(arch):
         moe=jcfg.MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
     assert moe.param_count() == jmoe.param_count()
     assert moe.active_param_count() == jmoe.active_param_count()
-
-
-def test_moe_lm_is_refused():
-    cfg = dataclasses.replace(
-        tcfg.get_reduced("qwen2.5-14b").model,
-        moe=tcfg.MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
-    with pytest.raises(NotImplementedError, match="A 7b"):
-        TT.init_lm(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="A 7b"):
-        TT.init_caches(cfg, 2, 8)
 
 
 # ---- layers and attention -------------------------------------------------
@@ -269,7 +262,11 @@ def test_lm_forward_and_loss_match(arch):
             jp, {k: jnp.asarray(v) for k, v in batch.items()})
     th, taux = TT.lm_hidden(tp, _t(tok), tc)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
-    assert float(taux) == float(jaux) == 0.0
+    if tc.moe is None:
+        assert float(taux) == float(jaux) == 0.0
+    else:   # each MoE layer's load-balance loss is near 1 (random router)
+        assert float(taux) > 0.5 * tc.n_layers
+        np.testing.assert_allclose(float(taux), float(jaux), **TOL)
     np.testing.assert_allclose(
         TT.unembed(tp, th, tc).numpy(),
         np.asarray(JT.unembed(jp, jh, jc)), **TOL)
@@ -280,6 +277,7 @@ def test_lm_forward_and_loss_match(arch):
     assert set(tm) == set(jm) == {"nll", "aux"}
     np.testing.assert_allclose(float(tl), float(jl), **TOL)
     np.testing.assert_allclose(float(tm["nll"]), float(jm["nll"]), **TOL)
+    np.testing.assert_allclose(float(tm["aux"]), float(jm["aux"]), **TOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -376,7 +374,10 @@ def test_train_launcher_lm_matches_reference_steps(capsys):
     """``--arch qwen2.5-14b --reduced --device cpu`` for 3 steps: each
     step's loss within 1e-5 of the reference's train step run from the
     same weights (the launcher's own draw) on the same batches."""
-    arch = "qwen2.5-14b"
+    launcher_matches_reference("qwen2.5-14b", capsys)
+
+
+def launcher_matches_reference(arch, capsys):
     out = ttrain.main(["--arch", arch, "--reduced", "--device", "cpu",
                        "--steps", "3", "--batch", "4", "--log-every", "1"])
     assert "finished 3 steps" in capsys.readouterr().out

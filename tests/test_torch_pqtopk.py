@@ -125,11 +125,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def _config_widths():
-    """(arch, m, b, code bytes, N) of every config the port ships (an
-    LM's PQ head scores its vocabulary)."""
+    """(arch, m, b, code bytes, N) of every config the port ships with a
+    PQ head (an LM's scores its vocabulary; the GNN has none)."""
     out = []
     for arch in sorted(tconfigs._REGISTRY):
         model = tconfigs.get_config(arch).model
+        if isinstance(model, tconfigs.GNNConfig):
+            continue
         lm = isinstance(model, tconfigs.LMConfig)
         pq = model.pq_head if lm else model.pq
         out.append((arch, pq.m, pq.b, np.dtype(pq.code_dtype).itemsize,
