@@ -74,7 +74,13 @@ against the CPU; both kernels at its vocabulary shape; one AdamW step at
 ``minibatch_lg`` with its edges cut tenfold (host, copy and card split),
 ``ogb_products`` at full size (step ms, peak memory, a profile),
 ``full_graph_sm`` and ``molecule`` against the CPU, and the train
-launcher.  Both kernel sources are built at once, one
+launcher.  Last, the one-card dry run (``dryrun_phase``): every (arch x
+active shape) cell at full width on meta tensors, in processes of its
+own on the host (arguments and peak bytes, flops, bytes, launches, the
+roofline's bound at the H100's peaks), then the prediction held to six
+cells run on the card from a seed: kernel launches and flops exactly,
+the arguments' allocation to their bytes, the peak within a stated
+tolerance.  Both kernel sources are built at once, one
 nvcc each; a pqtopk instance for a width the configs use (m = 2, 4, 6, 8)
 with a stack frame fails the run.  Prints the card's name and power limit,
 the pqtopk launch plans, kernel and per-method timings, a JSON line of
@@ -109,15 +115,6 @@ import time
 from dataclasses import replace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-# The data sheet's 67 TFLOP/s in float32 counts an FMA as two operations;
-# a plain add is one instruction, so adds alone peak at half that.
-F32_ADDS_PER_S = 67e12 / 2
-# Shared memory serves 32 banks x 4 B per SM per clock, so at most 32
-# four-byte lookups per SM per clock (NVIDIA Hopper tuning guide), at the
-# H100 SXM's 1.98 GHz maximum boost clock (data sheet).
-SMEM_LOOKUPS_PER_SM_CLOCK = 32
-SM_CLOCK_HZ = 1.98e9
 N_REQUESTS = 6400                  # 100 full batches of 64
 MAX_BATCH = 64
 K = 10
@@ -326,16 +323,16 @@ def compare_timed(name, fn_new, fn_old, reps=20, kind="pqtopk"):
 
 
 def bound_ms(nbytes: float, n_adds: float, n_lookups: float, n_sms: int):
-    """Least time for the work: HBM bytes, f32 adds, and shared-memory
-    lookups of S (the gather form's inherent operation).  Returns
-    (ms, "bytes" or "operations", the three terms in ms)."""
-    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "adds": n_adds / F32_ADDS_PER_S * 1e3,
-             "lookups": n_lookups / (SMEM_LOOKUPS_PER_SM_CLOCK * n_sms
-                                     * SM_CLOCK_HZ) * 1e3}
-    worst = max(terms, key=terms.get)
-    return (terms[worst], "bytes" if worst == "bytes" else "operations",
-            terms)
+    """Least time for the work (``repro_torch.kernels.cost.bound_ms``, the
+    H100's HBM, f32-add and shared-memory lookup rates): (ms, "bytes" or
+    "operations", the three terms in ms)."""
+    from repro_torch.kernels import cost
+    return cost.bound_ms(nbytes, n_adds, n_lookups, n_sms)
+
+
+def work_bound(work, n_sms: int):
+    """:func:`bound_ms` of a ``kernels.cost.Work``."""
+    return bound_ms(work.bytes, work.adds, work.lookups, n_sms)
 
 
 def pq_inputs(n, m, b, bq, dtype, seed, dev):
@@ -774,11 +771,13 @@ def reset_counts():
 
 
 def read_counts():
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
     from repro_torch.kernels.pqtopk import kernel
     return {"pq_topk_fused": kernel.pq_topk_fused_cuda.launches,
             "pq_topk_fused_2d": kernel.pq_topk_fused_cuda.launches_2d,
             "pq_topk_fused_live": kernel.pq_topk_fused_cuda.launches_live,
-            "pq_scores": kernel.pq_scores_cuda.launches}
+            "pq_scores": kernel.pq_scores_cuda.launches,
+            "embedding_bag": eb_kernel.embedding_bag_cuda.launches}
 
 
 def expect_counts(what, got, **want):
@@ -2695,6 +2694,7 @@ def vocab_kernels(label, head, phi, n_sms):
     {kernel: record fields but ``launches``}."""
     import torch
     from repro_torch.core import scoring
+    from repro_torch.kernels import cost
     from repro_torch.kernels.pqtopk import kernel, ops, ref
     codes = head["codes"]
     s = scoring.subid_scores(head["sub_emb"], phi).contiguous()
@@ -2709,8 +2709,7 @@ def vocab_kernels(label, head, phi, n_sms):
                   (ref.pq_scores(codes, s),))
     flat = codes.long() + torch.arange(m, device=dev) * b
     table = s.permute(1, 2, 0).reshape(m * b, bq).contiguous()
-    bnd, by, terms = bound_ms(n * m * 4 + bq * m * b * 4 + bq * n * 4,
-                              bq * n * (m - 1), bq * n * m, n_sms)
+    bnd, by, terms = work_bound(cost.pq_scores_work(n, m, 4, bq, b), n_sms)
     rec["pq_scores"] = {
         "max_abs_err": err,
         "ms": time_ms(lambda: kernel.pq_scores_cuda(codes, s), 20,
@@ -2724,9 +2723,8 @@ def vocab_kernels(label, head, phi, n_sms):
                   kernel.pq_topk_fused_cuda(codes, s, k, idx, n_items=n,
                                             tile=tile),
                   ref.pq_topk_slots(codes, s, k, idx, n_items=n, tile=tile))
-    bnd, by, terms = bound_ms(
-        n * m * 4 + bq * m * b * 4 + idx.numel() * 4
-        + bq * idx.numel() * k * 8, bq * n * (m - 1), bq * n * m, n_sms)
+    bnd, by, terms = work_bound(cost.pq_topk_fused_work(
+        n, m, 4, bq, b, k, idx.numel(), 1, tile, False), n_sms)
     rec["pq_topk_fused"] = {
         "max_abs_err": err,
         "ms": time_ms(lambda: kernel.pq_topk_fused_cuda(
@@ -3301,6 +3299,211 @@ def gnn_phase(dev):
     print(f"gnn phase: {time.monotonic() - t_phase:.1f}s")
 
 
+DRYRUN_OUT = os.path.join("chiprun_out", "dryrun_torch")
+# The cells the dry run's prediction is held to on the card: (arch, shape,
+# variant, layers or None for the config's depth, dims that replace the
+# shape's).  qwen3-moe is cut from 48 layers to 2 so its decode_32k caches
+# and weights fit the card (~21 GB); sasrec-recjpq's train_seq is cut from
+# 4,096 sequences to 128: the whole batch's gBCE negatives alone would
+# take 429 GB (the matrix predicts a 958 GB peak).
+DRYRUN_CHECKS = (
+    ("sasrec-recjpq", "serve_users", "fused_head", None, {}),
+    ("sasrec-recjpq", "train_seq", "baseline", None, {"global_batch": 128}),
+    ("fm", "retrieval_cand", "fused_head", None, {}),
+    ("dcn-v2", "train_batch", "baseline", None, {}),
+    ("graphsage-reddit", "ogb_products", "baseline", None, {}),
+    ("qwen3-moe-30b-a3b", "decode_32k", "fused_head", 2, {}),
+)
+# The caching allocator rounds every block up to 512 bytes, and a block
+# over 1 MiB that it does not split may be up to 1 MiB larger than asked.
+ALLOC_ROUND = 512
+ALLOC_LARGE_SLACK = 1 << 20
+# The card's peak may exceed the predicted one by what the count cannot
+# see: the allocator's rounding and unsplit blocks, and the scratch that
+# library kernels (cuBLAS, sorts, top-k) allocate inside one op.  It may
+# fall short of it where autograd frees a buffer between two other ops
+# than on meta (a CPU backward runs in the calling thread, a meta or CUDA
+# one in the device's worker thread; on the CPU the reduced training
+# cells' peaks differ from meta's by up to 4.4% either way).
+DRYRUN_PEAK_TOL = dict(below=0.05, above=0.10, abs_bytes=512 << 20)
+
+
+def dryrun_matrix(card):
+    """Every (arch x active shape) cell at full width on meta, its artifact
+    under ``chiprun_out/dryrun_torch``, one line per cell: arguments and
+    peak GB, whether they fit the card, flops by dtype, bytes, kernel
+    launches and the roofline's bounding term at the H100's peaks.  The
+    cells run in processes of their own on the host (meta tensors; the
+    card is idle).  Any failed cell fails the run."""
+    from repro_torch.launch import dryrun
+    t0 = time.monotonic()
+    cells = list(dryrun.iter_cells())
+    workers = max(1, min(8, os.cpu_count() or 1))
+    results = dryrun.run_matrix(cells, DRYRUN_OUT, workers=workers)
+    for res in results:
+        if not res["ok"]:
+            raise AssertionError(f"dry run {res['arch']} {res['shape']}: "
+                                 f"{res['error']}")
+        mem, roof = res["memory"], res["roofline"]
+        launches = {k: v for k, v in res["kernel_launches"].items() if v}
+        stand = f" rung {res['rung']}" if "rung" in res else ""
+        print(f"dryrun {res['arch']} {res['shape']}: ok args "
+              f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB peak "
+              f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB fits_one_card "
+              f"{res['fits_one_card']} flops {res['flops_by_dtype']} bytes "
+              f"{res['bytes_per_device']:.4e} launches {launches} bound "
+              f"{roof['bound_by']} {roof['bound_s'] * 1e3:.3f} ms (compute "
+              f"{roof['compute_s'] * 1e3:.3f}, eager memory "
+              f"{roof['memory_s'] * 1e3:.3f}); least-traffic bound "
+              f"{roof['min_bound_by']} {roof['min_bound_s'] * 1e3:.3f} ms "
+              f"(memory {roof['min_memory_s'] * 1e3:.3f}){stand}; {card}")
+    n_fit = sum(r["fits_one_card"] for r in results)
+    print(f"dryrun matrix: {len(results)} cells on meta in "
+          f"{time.monotonic() - t0:.1f}s with {workers} processes, "
+          f"{n_fit} fit one card; artifacts in {DRYRUN_OUT}")
+    return results
+
+
+def dryrun_check(dev, arch_id, shape_name, variant, n_layers, dims, card):
+    """One cell: predicted on meta, then run on the card from a seed
+    (warm-up, a counted run, a timed run).  Holds launches per form and
+    flops to the prediction exactly, the rise of ``memory_allocated``
+    from materialising the arguments to their bytes up to the
+    allocator's rounding, and the timed run's peak above what was held
+    to the predicted peak within ``DRYRUN_PEAK_TOL``.  Returns the
+    measured run's launches per form and a record."""
+    import gc
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import cost
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.training import tree as tree_lib
+    arch = get_config(arch_id)
+    if n_layers is not None:
+        arch = replace(arch, model=replace(arch.model, n_layers=n_layers))
+    if dims:
+        arch = replace(arch, shapes=tuple(
+            replace(sh, dims={**sh.dims, **dims}) if sh.name == shape_name
+            else sh for sh in arch.shapes))
+    what = (f"{arch_id} {shape_name} {variant}"
+            + (f" ({n_layers} layers)" if n_layers else "")
+            + "".join(f" ({k} {v})" for k, v in dims.items()))
+    bundle = steps.build_step(arch_id, shape_name, "meta", variant,
+                              arch_override=arch)
+    pred = dryrun._measure(bundle)
+    pred_args = dryrun.storage_bytes(list(bundle.args))
+    roof = dryrun.roofline(pred["flops_by_dtype"], pred["bytes"],
+                           pred["kernel_ops"], pred["min_bytes"])
+    leaves = tree_lib.leaves(list(bundle.args))
+    lo = sum(-(-max(t.numel() * t.element_size(), 1) // ALLOC_ROUND)
+             * ALLOC_ROUND for t in leaves)
+    hi = lo + ALLOC_LARGE_SLACK * sum(
+        t.numel() * t.element_size() > ALLOC_LARGE_SLACK for t in leaves)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    args = steps.materialize(bundle, dev, seed=0).args
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - before
+    if not lo <= rise <= hi:
+        raise AssertionError(
+            f"dryrun check {what}: arguments took {rise} bytes on the card, "
+            f"predicted {pred_args} ({lo} to {hi} with the allocator's "
+            "rounding)")
+    out = bundle.step_fn(*args)                               # warm-up
+    torch.cuda.synchronize()
+    del out
+    with cost.recording() as rec:
+        counter = dryrun.StepCounter(rec)
+        with counter:
+            out = bundle.step_fn(*args)
+        torch.cuda.synchronize()
+    del out
+    counted = dict(counter.flops)
+    if counted != pred["flops_by_dtype"] or rec.launches != pred["launches"]:
+        raise AssertionError(
+            f"dryrun check {what}: the card counted flops {counted} and "
+            f"launches {rec.launches}, meta predicted "
+            f"{pred['flops_by_dtype']} and {pred['launches']}")
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = bundle.step_fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = read_counts()
+    del out
+    if launches != pred["launches"]:
+        raise AssertionError(f"dryrun check {what}: the timed run launched "
+                             f"{launches}, meta predicted "
+                             f"{pred['launches']}")
+    gap = peak - pred["peak_bytes"]
+    if not (-DRYRUN_PEAK_TOL["below"] * pred["peak_bytes"]
+            - ALLOC_LARGE_SLACK <= gap <= DRYRUN_PEAK_TOL["above"]
+            * pred["peak_bytes"] + DRYRUN_PEAK_TOL["abs_bytes"]):
+        raise AssertionError(
+            f"dryrun check {what}: peak {peak} bytes above what was held, "
+            f"predicted {pred['peak_bytes']} (tolerance {DRYRUN_PEAK_TOL})")
+    share = roof["bound_s"] * 1e3 / ms
+    min_share = roof["min_bound_s"] * 1e3 / ms
+    print(f"dryrun check {what}: args {pred_args / 1e9:.4f} GB predicted, "
+          f"{rise / 1e9:.4f} GB allocated (+{rise - pred_args} bytes); "
+          f"peak predicted {pred['peak_bytes'] / 1e9:.4f} GB, measured "
+          f"{peak / 1e9:.4f} GB ({gap / max(pred['peak_bytes'], 1):+.2%}); "
+          f"flops {counted} equal; launches "
+          f"{ {k: v for k, v in launches.items() if v} } equal; step "
+          f"{ms:.3f} ms (one run after a warm-up, CUDA events); eager "
+          f"traffic's bound {roof['bound_by']} {roof['bound_s'] * 1e3:.3f} "
+          f"ms, {share:.1%} of it; least traffic's bound "
+          f"{roof['min_bound_by']} {roof['min_bound_s'] * 1e3:.3f} ms, "
+          f"{min_share:.1%} of it; {card}")
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"cell": what, "ms": ms, "bound_ms": roof["bound_s"]
+                      * 1e3, "min_bound_ms": roof["min_bound_s"] * 1e3,
+                      "args": pred_args, "rise": rise,
+                      "peak_pred": pred["peak_bytes"], "peak": peak}
+
+
+def dryrun_phase(dev):
+    """The one-card dry run (ROADMAP A 8a): the 40-cell matrix on meta,
+    then the prediction held to the card on :data:`DRYRUN_CHECKS`.
+    Returns the checked runs' kernel launches by the name of the kernel
+    table's row of their shape: an LM's head launches under
+    ``<form>_lm_head``."""
+    import gc
+    import torch
+    from repro_torch.configs.base import get_config
+    t_phase = time.monotonic()
+    card = card_line()
+    dryrun_matrix(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {}
+    for arch_id, shape_name, variant, n_layers, dims in DRYRUN_CHECKS:
+        t0 = time.monotonic()
+        launches, _ = dryrun_check(dev, arch_id, shape_name, variant,
+                                   n_layers, dims, card)
+        lm = get_config(arch_id).family == "lm"
+        for k, v in launches.items():
+            row = f"{k}_lm_head" if lm else k
+            total[row] = total.get(row, 0) + v
+        print(f"dryrun check {arch_id} {shape_name}: "
+              f"{time.monotonic() - t0:.1f}s")
+    print(f"dryrun phase: {time.monotonic() - t_phase:.1f}s; checked runs "
+          f"launched {total}")
+    return total
+
+
 EB_SRC = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
 RECSYS_ARCHS = ("bst", "dcn-v2", "dien", "fm")
 
@@ -3708,6 +3911,7 @@ def main(argv=None) -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.core import retrieval_head, scoring
     from repro_torch.core.pq import widen
+    from repro_torch.kernels import cost
     from repro_torch.kernels.pqtopk import kernel, ops, ref
     from repro_torch.models import seqrec
 
@@ -3858,9 +4062,8 @@ def main(argv=None) -> int:
         table = s.permute(1, 2, 0).reshape(m * b, bq).contiguous()
         emb_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
             flat, table, mode="sum"), 20, graph=True)
-        bnd, by, terms = bound_ms(
-            n * m * code_b + bq * m * b * 4 + bq * n * 4, bq * n * (m - 1),
-            bq * n * m, n_sms)
+        bnd, by, terms = work_bound(
+            cost.pq_scores_work(n, m, code_b, bq, b), n_sms)
         print(f"bound pq_scores: {terms} ms on {n_sms} SMs")
         src = "src/repro_torch/kernels/pqtopk/csrc/pqtopk.cu"
         recs.append({
@@ -3878,10 +4081,8 @@ def main(argv=None) -> int:
         topk_plain = time_ms(lambda: ref.pq_topk_slots(
             codes, s, K_KERNEL, idx, n_items=n, tile=tile), 3)
         n_slots = idx.numel()
-        bnd, by, terms = bound_ms(
-            n * m * code_b + bq * m * b * 4 + n_slots * 4
-            + bq * n_slots * K_KERNEL * 8, bq * n * (m - 1), bq * n * m,
-            n_sms)
+        bnd, by, terms = work_bound(cost.pq_topk_fused_work(
+            n, m, code_b, bq, b, K_KERNEL, n_slots, 1, tile, False), n_sms)
         print(f"bound pq_topk_fused: {terms} ms on {n_sms} SMs")
         recs.append({
             "name": "pq_topk_fused", "route": "cuda", "source": src,
@@ -3922,11 +4123,21 @@ def main(argv=None) -> int:
             print(f"lm launches {r['name']} with the MoE heads: "
                   f"{r['launches']}")
     gnn_phase(dev)
+    dry = dryrun_phase(dev)
+    rows = {r["name"] for r in recs} | {"embedding_bag"}
+    if any(v and k not in rows for k, v in dry.items()):
+        raise AssertionError(f"dryrun launches {dry} name a row the kernel "
+                             "table lacks")
+    for r in recs:      # the checked dry-run cells' launches join the rows
+        if r["name"] in dry and dry[r["name"]]:
+            r["launches"] += dry[r["name"]]
+            print(f"dryrun launches {r['name']}: +{dry[r['name']]}")
     bulk = bags["bst serve_bulk"]
     recs.append({
         "name": "embedding_bag", "route": "cuda", "source": EB_SRC,
         "replaces": "src/repro/kernels/embedding_bag/kernel.py:35",
-        "launches": sum(b["launches"] for b in bags.values()),
+        "launches": sum(b["launches"] for b in bags.values())
+        + dry.get("embedding_bag", 0),
         "max_abs_err": max([max_err["embedding_bag"]]
                            + [b["max_abs_err"] for b in bags.values()]),
         **{k: bulk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

@@ -319,6 +319,10 @@ class ArchConfig:
                 return s
         raise KeyError(f"{self.arch_id}: unknown shape {name!r}")
 
+    def active_shapes(self) -> Tuple[ShapeSpec, ...]:
+        """The shapes that are not a documented skip."""
+        return tuple(s for s in self.shapes if not s.skip_reason)
+
 
 _REGISTRY = {
     "qwen2.5-14b": "qwen2_5_14b",

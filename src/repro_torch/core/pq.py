@@ -69,6 +69,18 @@ def init_pq_embedding(generator: torch.Generator, pq: PQConfig, n_items: int,
     return {"codes": codes.to(device), "sub_emb": sub_emb.to(device)}
 
 
+def abstract_pq_embedding(pq: PQConfig, n_items: int, d_model: int,
+                          dtype: torch.dtype = torch.float32) -> Params:
+    """:func:`init_pq_embedding`'s tree on meta (no storage), its
+    sub-embeddings in ``dtype``."""
+    from repro_torch.training import tree as tree_lib
+
+    def build(generator):
+        p = init_pq_embedding(generator, pq, n_items, d_model)
+        return {**p, "sub_emb": p["sub_emb"].to(dtype)}
+    return tree_lib.eval_shape(build, torch.Generator())
+
+
 def reconstruct(params: Params, ids: torch.Tensor) -> torch.Tensor:
     """Eq. 2: gather sub-embeddings for ``ids`` and concat. (..., d_model).
 

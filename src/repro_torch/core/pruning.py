@@ -63,6 +63,7 @@ from repro_torch.core import pq as pq_lib
 from repro_torch.core import topk as topk_lib
 from repro_torch.core.scoring import tree_sum
 from repro_torch.distributed.sharding import on_device
+from repro_torch.kernels import cost
 from repro_torch.kernels.pqtopk import ops as kernel_ops
 
 NEG_INF = float("-inf")
@@ -405,6 +406,19 @@ def with_super(state: PrunedHeadState,
                    super_packed=sup.reshape(-1, m, w))
 
 
+def abstract_pruned_state(n_items: int, m: int, b: int,
+                          tile: int = DEFAULT_PRUNE_TILE, *,
+                          shards: int = 1, backend: str = "bitmask",
+                          super_factor: int = 0) -> PrunedHeadState:
+    """:func:`build_pruned_state`'s state for an ``(n_items, m)`` code
+    table, on meta (no storage); presence words are ``int32``."""
+    from repro_torch.training import tree as tree_lib
+    codes = torch.empty((n_items, m), dtype=torch.int32, device="meta")
+    return tree_lib.eval_shape(build_pruned_state, codes, b, tile,
+                               shards=shards, backend=backend,
+                               super_factor=super_factor)
+
+
 # ---------------------------------------------------------------------------
 # query-dependent: bounds -> theta -> survival
 # ---------------------------------------------------------------------------
@@ -635,9 +649,21 @@ def seed_plan(codes: torch.Tensor, s: torch.Tensor, bounds: torch.Tensor,
     return SeedPlan(sizes, order, score_chunk, est, bq)
 
 
+def _host_int(t: torch.Tensor, largest: int, what: str) -> int:
+    """``int(t)``, a host read; of a meta tensor (the dry run), ``largest``,
+    the most the shapes allow (``kernels.cost.stand_in`` records it)."""
+    if t.is_meta:
+        return cost.stand_in(what, largest)
+    return int(t)
+
+
 def _read_flags(flags):
     """0-d bool tensors (one per shard, maybe on several devices) read to
-    the host in one read."""
+    the host in one read.  Meta flags read as False (not yet stable: the
+    seed grows to its largest size)."""
+    if flags[0].is_meta:
+        return [cost.stand_in("pruning._read_flags: seed stability", False)
+                for _ in flags]
     if len(flags) == 1:
         return [bool(flags[0])]
     lead = flags[0].device
@@ -935,7 +961,8 @@ def _hier_tail(codes, s, k, state: PrunedHeadState, *, seed_kw, ladder,
         else super_ladder, n_super, k, factor * tile)
     if pin_rung:
         sup_rungs = sup_rungs[:1]
-    sup_count = int(sup_count)                       # host read 1
+    sup_count = _host_int(sup_count, n_super,        # host read 1
+                          "pruning._hier_tail: super survivor count")
     i_sup = _rung(sup_count, sup_rungs)
     r_sup = sup_rungs[i_sup]
     # Children's global tile ids, ascending: supers ascend in the slots
@@ -952,7 +979,8 @@ def _hier_tail(codes, s, k, state: PrunedHeadState, *, seed_kw, ladder,
     crungs = normalize_ladder(ladder, r_sup * factor, k, tile)
     if pin_rung:
         crungs = crungs[:1]
-    count = int(count)                               # host read 2
+    count = _host_int(count, min(r_sup * factor, t_total),   # host read 2
+                      "pruning._hier_tail: child survivor count")
     vals, ids, rung = kernel_ops.pq_topk_tiles_ladder(
         codes, s, k, [child_slots[:r] for r in crungs], count, tile=tile,
         live=live)
@@ -1058,7 +1086,13 @@ def cascade_topk_ingraph(codes: torch.Tensor, s: torch.Tensor, k: int,
             union = pq_mask.any(dim=0).sum(dtype=torch.int32)
             # The one host read of the batch: group counts and the union
             # count.
-            *group_counts, count = torch.cat([counts, union[None]]).tolist()
+            if counts.is_meta:
+                *group_counts, count = [cost.stand_in(
+                    "pruning.cascade_topk_ingraph: group and union counts",
+                    t_total)] * (counts.shape[0] + 1)
+            else:
+                *group_counts, count = torch.cat(
+                    [counts, union[None]]).tolist()
             max_group = max(group_counts)
             vals, ids, rung = kernel_ops.pq_topk_tiles_ladder(
                 codes, s[perm], k, [slots2d[:, :r] for r in rungs],
@@ -1072,7 +1106,8 @@ def cascade_topk_ingraph(codes: torch.Tensor, s: torch.Tensor, k: int,
             theta, n_seed_used, seed_sf = theta_seed_ingraph(
                 codes, s, bounds, k, **seed_kw)
             slots_full, count_t = compact_mask(survival_mask(bounds, theta))
-            count = int(count_t)                    # the one host read
+            count = _host_int(count_t, t_total,         # the one host read
+                              "pruning.cascade_topk_ingraph: survivor count")
             vals, ids, rung = kernel_ops.pq_topk_tiles_ladder(
                 codes, s, k, [slots_full[:r] for r in rungs], count,
                 tile=tile, live=live)

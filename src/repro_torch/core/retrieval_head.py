@@ -61,6 +61,19 @@ def init(generator: torch.Generator, n_items: int, d_model: int,
     return params
 
 
+def abstract(n_items: int, d_model: int, pq: Optional[PQConfig] = None,
+             dtype: torch.dtype = torch.float32) -> Params:
+    """:func:`init`'s tree on meta (no storage), its table or
+    sub-embeddings in ``dtype``."""
+    from repro_torch.training import tree as tree_lib
+
+    def build(generator):
+        p = init(generator, n_items, d_model, pq)
+        key = "table" if pq is None else "sub_emb"
+        return {**p, key: p[key].to(dtype)}
+    return tree_lib.eval_shape(build, torch.Generator())
+
+
 def is_pq(params: Params) -> bool:
     return "codes" in params
 

@@ -1,0 +1,169 @@
+"""What a kernel launch costs: its work, its bound on the H100, and the
+dry run's record of launches.
+
+A launch's work is what its inputs' shapes say it must do: HBM bytes
+(each input byte read once, each output byte written once), float32 adds
+and lookups of S in shared memory.  :func:`bound_ms` turns work into the
+least time the card could take (the kernel table's bound in ``PERF.md``);
+``chip_smoke.py`` reads its constants from here.
+
+:func:`launch` wraps the body of each kernel wrapper (the CUDA kernel on
+the card, a meta branch on meta tensors, the plain version on the CPU).
+Outside a :func:`recording` block it only calls the body.  Inside one it
+also records the launch, keyed by the wrapper's form (the keys of
+``chip_smoke.py: read_counts``), with its work, whatever the inputs'
+device, and hides the body's own aten ops from the recorder's observers
+(:attr:`Recorder.hidden`), so a step counts the same work on meta, on the
+CPU and on the card.
+"""
+from __future__ import annotations
+
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+# The data sheet's 67 TFLOP/s in float32 counts an FMA as two operations;
+# a plain add is one instruction, so adds alone peak at half that.
+F32_ADDS_PER_S = 67e12 / 2
+# Shared memory serves 32 banks x 4 B per SM per clock, so at most 32
+# four-byte lookups per SM per clock (NVIDIA Hopper tuning guide), at the
+# H100 SXM's 1.98 GHz maximum boost clock (data sheet).
+SMEM_LOOKUPS_PER_SM_CLOCK = 32
+SM_CLOCK_HZ = 1.98e9
+H100_SMS = 132                     # H100 SXM
+
+#: The recorded forms, as ``chip_smoke.py: read_counts`` names them.
+FORMS = ("pq_topk_fused", "pq_topk_fused_2d", "pq_topk_fused_live",
+         "pq_scores", "embedding_bag")
+
+
+def bound_ms(nbytes: float, n_adds: float, n_lookups: float, n_sms: int):
+    """Least time for the work: HBM bytes, f32 adds, and shared-memory
+    lookups of S (the gather form's inherent operation).  Returns
+    (ms, "bytes" or "operations", the three terms in ms)."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "adds": n_adds / F32_ADDS_PER_S * 1e3,
+             "lookups": n_lookups / (SMEM_LOOKUPS_PER_SM_CLOCK * n_sms
+                                     * SM_CLOCK_HZ) * 1e3}
+    worst = max(terms, key=terms.get)
+    return (terms[worst], "bytes" if worst == "bytes" else "operations",
+            terms)
+
+
+@dataclass(frozen=True)
+class Work:
+    """One launch's work."""
+    bytes: int
+    adds: int
+    lookups: int
+
+
+def pq_scores_work(n: int, m: int, code_bytes: int, bq: int, b: int
+                   ) -> Work:
+    """``pq_scores``: codes (N, m), S (B, m, b) f32 -> (B, N) f32."""
+    return Work(n * m * code_bytes + bq * m * b * 4 + bq * n * 4,
+                bq * n * (m - 1), bq * n * m)
+
+
+def pq_topk_fused_work(n: int, m: int, code_bytes: int, bq: int, b: int,
+                       k: int, slots: int, n_rows: int, tile: int,
+                       live: bool) -> Work:
+    """The fused kernel over ``n_rows`` slot rows of ``slots`` slots each
+    (1 row: a 1D list): each query scores every row of every listed tile
+    (no more than the catalogue), a sentinel slot counted as a full tile;
+    the codes (and the ``live`` bytes) of at most N rows are read once,
+    and (B, slots, k) values and ids are written."""
+    rows = min(n, slots * tile)
+    read = min(n, n_rows * slots * tile)
+    pairs = bq * rows
+    return Work(read * m * code_bytes + (read if live else 0)
+                + bq * m * b * 4 + n_rows * slots * 4 + bq * slots * k * 8,
+                pairs * (m - 1), pairs * m)
+
+
+def embedding_bag_work(v: int, d: int, n_bags: int, bag: int,
+                       weighted: bool) -> Work:
+    """``embedding_bag``: at most ``min(V, slots)`` distinct rows of the
+    f32 table, the indices, the weights if any, and the (n_bags, d)
+    output; a multiply and an add per slot element."""
+    slots = n_bags * bag
+    return Work(min(v, slots) * d * 4 + slots * 4 + (slots * 4 if weighted
+                                                     else 0)
+                + n_bags * d * 4, 2 * slots * d, 0)
+
+
+@dataclass
+class Recorder:
+    """Launches and work of the kernel wrappers called inside one
+    :func:`recording` block.  ``on_launch(name, work, outputs)``, if set,
+    sees each launch's outputs (the dry run tracks their storage);
+    ``hidden`` > 0 while a wrapper's body runs; ``stand_ins`` lists the
+    host reads of a meta tensor that took their largest value."""
+    launches: Dict[str, int] = field(
+        default_factory=lambda: dict.fromkeys(FORMS, 0))
+    work: Dict[str, Dict[str, int]] = field(
+        default_factory=lambda: {f: {"bytes": 0, "adds": 0, "lookups": 0}
+                                 for f in FORMS})
+    stand_ins: List[str] = field(default_factory=list)
+    on_launch: Optional[Callable[[str, Work, Any], None]] = None
+    hidden: int = 0
+
+    def add(self, name: str, work: Work, outputs: Any) -> None:
+        self.launches[name] += 1
+        w = self.work[name]
+        w["bytes"] += work.bytes
+        w["adds"] += work.adds
+        w["lookups"] += work.lookups
+        if self.on_launch is not None:
+            self.on_launch(name, work, outputs)
+
+    def totals(self) -> Dict[str, int]:
+        return {key: sum(w[key] for w in self.work.values())
+                for key in ("bytes", "adds", "lookups")}
+
+
+_ACTIVE: List[Recorder] = []
+
+
+def active() -> Optional[Recorder]:
+    """The recorder of the innermost open :func:`recording` block, or
+    ``None``."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+@contextmanager
+def recording(recorder: Optional[Recorder] = None):
+    """Record every kernel wrapper's launches, from any thread, into
+    ``recorder`` (a new one by default) until the block ends."""
+    rec = Recorder() if recorder is None else recorder
+    _ACTIVE.append(rec)
+    try:
+        yield rec
+    finally:
+        _ACTIVE.remove(rec)
+
+
+def launch(name: str, work: Callable[[], Work], body: Callable[[], Any]):
+    """Run one wrapper's kernel ``body`` (returns its outputs); inside a
+    :func:`recording` block, record the launch as ``name`` with
+    ``work()``, the body's aten ops hidden."""
+    rec = active()
+    if rec is None:
+        return body()
+    rec.hidden += 1
+    try:
+        out = body()
+    finally:
+        rec.hidden -= 1
+    rec.add(name, work(), out)
+    return out
+
+
+def stand_in(what: str, value):
+    """A host read of a meta tensor: record it (inside a recording
+    block) and return ``value``, the largest the shapes allow."""
+    rec = active()
+    if rec is not None:
+        rec.stand_ins.append(what)
+    return value

@@ -1,7 +1,12 @@
 """Public wrappers around the PQTopK kernels.
 
 A tensor on the card goes to the CUDA kernel (or the call raises); a
-tensor on the CPU goes to the kernel's plain version in :mod:`ref`.  The
+tensor on the CPU goes to the kernel's plain version in :mod:`ref`; a
+meta tensor (the dry run) gets meta outputs of the kernel's shapes and
+dtypes, and nothing is computed, built or loaded.  Each call of
+:func:`pq_scores` or :func:`pq_topk_slots` is one launch that
+:func:`repro_torch.kernels.cost.launch` records, with its work, inside a
+recording block, on any device.  The
 wrappers own the item-tile rule ``tile = min(2048, round_up(N, 128))``
 and the ``k > tile`` error, which the engine's ``max_k`` and the slot
 count depend on, and the cross-slot merge of the fused kernel's winners.
@@ -27,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import topk as topk_lib
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels.pqtopk import kernel as _k, ref as _ref
 
 NEG_INF = float("-inf")
@@ -102,9 +108,17 @@ def _remap_dead(fv: torch.Tensor, fi: torch.Tensor, n: int):
 
 def pq_scores(codes: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """PQ scores for all items. codes (N,m), s (B,m,b) -> (B,N) f32."""
-    if s.is_cuda:
-        return _k.pq_scores_cuda(codes.contiguous(), s.contiguous())
-    return _ref.pq_scores(codes, s)
+    def body():
+        if s.is_meta:
+            return torch.empty((s.shape[0], codes.shape[0]),
+                               dtype=torch.float32, device="meta")
+        if s.is_cuda:
+            return _k.pq_scores_cuda(codes.contiguous(), s.contiguous())
+        return _ref.pq_scores(codes, s)
+
+    return _cost.launch("pq_scores", lambda: _cost.pq_scores_work(
+        codes.shape[0], codes.shape[1], codes.element_size(), s.shape[0],
+        s.shape[2]), body)
 
 
 def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
@@ -113,13 +127,30 @@ def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
     """The fused kernel's output: per-slot winners (B, n_slots, k).  A 2D
     ``tile_idx`` gives row ``j`` to queries ``j*batch_tile ..``; ``live``
     (N,) masks dead rows inside each tile's top-k."""
-    if s.is_cuda:
-        return _k.pq_topk_fused_cuda(
-            codes.contiguous(), s.contiguous(), k, tile_idx.contiguous(),
-            n_items=n_items, tile=tile, batch_tile=batch_tile,
-            live=None if live is None else live.contiguous())
-    return _ref.pq_topk_slots(codes, s, k, tile_idx, n_items=n_items,
-                              tile=tile, batch_tile=batch_tile, live=live)
+    slots = tile_idx.shape[-1]
+
+    def body():
+        if s.is_meta:
+            shape = (s.shape[0], slots, k)
+            return (torch.empty(shape, dtype=torch.float32, device="meta"),
+                    torch.empty(shape, dtype=torch.int32, device="meta"))
+        if s.is_cuda:
+            return _k.pq_topk_fused_cuda(
+                codes.contiguous(), s.contiguous(), k, tile_idx.contiguous(),
+                n_items=n_items, tile=tile, batch_tile=batch_tile,
+                live=None if live is None else live.contiguous())
+        return _ref.pq_topk_slots(codes, s, k, tile_idx, n_items=n_items,
+                                  tile=tile, batch_tile=batch_tile, live=live)
+
+    if slots == 0:      # the kernel launches nothing for an empty list
+        return body()
+    form = ("pq_topk_fused_live" if live is not None
+            else "pq_topk_fused_2d" if tile_idx.dim() == 2
+            else "pq_topk_fused")
+    return _cost.launch(form, lambda: _cost.pq_topk_fused_work(
+        codes.shape[0], codes.shape[1], codes.element_size(), s.shape[0],
+        s.shape[2], k, slots, tile_idx.shape[0] if tile_idx.dim() == 2
+        else 1, tile, live is not None), body)
 
 
 def pq_topk(codes: torch.Tensor, s: torch.Tensor, k: int, *,

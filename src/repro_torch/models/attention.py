@@ -154,6 +154,14 @@ def init_cache(batch: int, max_len: int, cfg: AttentionConfig, *,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def abstract_cache(batch: int, max_len: int, cfg: AttentionConfig, *,
+                   is_global: bool, dtype: torch.dtype = torch.bfloat16
+                   ) -> Dict[str, torch.Tensor]:
+    """Meta stand-in of :func:`init_cache` (no storage)."""
+    return init_cache(batch, max_len, cfg, is_global=is_global, dtype=dtype,
+                      device="meta")
+
+
 def decode_attend(p: Params, cfg: AttentionConfig, x: torch.Tensor,
                   cache: Dict[str, torch.Tensor], pos, is_global: bool,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

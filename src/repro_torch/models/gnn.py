@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import GNNConfig
 from repro_torch.interop import to_device
 from repro_torch.models import layers
+from repro_torch.training import tree as tree_lib
 
 Params = Dict[str, Any]
 
@@ -55,6 +56,11 @@ def init_gnn(generator: torch.Generator, cfg: GNNConfig, d_feat: int, *,
          "out": layers.dense_init(generator, cfg.d_hidden, cfg.n_classes,
                                   bias=True, dtype=dtype)}
     return to_device(p, device) if device is not None else p
+
+
+def abstract_gnn(cfg: GNNConfig, d_feat: int) -> Params:
+    """:func:`init_gnn`'s tree on meta: no storage, no draw."""
+    return tree_lib.eval_shape(init_gnn, torch.Generator(), cfg, d_feat)
 
 
 class _SegmentSum(torch.autograd.Function):

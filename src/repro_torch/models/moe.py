@@ -31,7 +31,6 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import topk as topk_lib
@@ -89,20 +88,27 @@ def _route(p: Params, cfg: MoEConfig, xg: torch.Tensor):
     return probs, gate_vals, sel
 
 
+def _one_hot(x: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 one-hot rows of ``x`` over ``n`` classes (a value outside
+    [0, n) gives a zero row).  Not ``F.one_hot``: on the CPU it checks its
+    input's range with two host reads that it skips on the card, so the
+    same step would run other ops on each device."""
+    return (x[..., None] == torch.arange(n, device=x.device)).float()
+
+
 def _dense_dispatch(sel: torch.Tensor, gate_vals: torch.Tensor, e: int,
                     c: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (dispatch (G, Tg, E, C) 0/1, combine (G, Tg, E, C) with the gate
     values): choice j of token t sits at its rank among the group's pairs
     that chose its expert, counted in ``t * k + j`` order; a rank >= c is
-    dropped.  ``F.one_hot`` refuses the reference's out-of-range ranks
-    (which ``jax.nn.one_hot`` maps to zero rows), so ranks are clamped
-    first and the rows not kept zeroed after, as the reference's are."""
+    dropped: ranks are clamped and the rows not kept zeroed after, as the
+    reference's are."""
     g, tg, k = sel.shape
-    onehot = F.one_hot(sel.long(), e).float()                  # (G, Tg, k, E)
+    onehot = _one_hot(sel, e)                              # (G, Tg, k, E)
     pos = torch.cumsum(onehot.reshape(g, tg * k, e), dim=1) - 1.0
     pos = pos.reshape(g, tg, k, e)
     keep = (pos < c) & (onehot > 0)
-    pos_c = F.one_hot(pos.long().clamp(0, c - 1), c).float()
+    pos_c = _one_hot(pos.long().clamp(0, c - 1), c)
     pos_c = pos_c * keep[..., None]
     dispatch = pos_c.sum(2)
     combine = (pos_c * gate_vals[..., None, None]).sum(2)
@@ -206,6 +212,6 @@ def _moe_ffn_sort(p: Params, cfg: MoEConfig, x: torch.Tensor, act: str,
     if "shared" in p:
         out = out + layers.mlp(p["shared"], x, act)
 
-    density = F.one_hot(sel.long(), e).float().sum((1, 2)) / (tg * k)
+    density = _one_hot(sel, e).sum((1, 2)) / (tg * k)
     aux = ((density * probs.mean(1)).sum(-1) * e).mean()
     return out, aux.float()

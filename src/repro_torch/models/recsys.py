@@ -19,6 +19,7 @@ from repro_torch.configs.base import AttentionConfig, RecsysConfig
 from repro_torch.core import retrieval_head
 from repro_torch.interop import to_device
 from repro_torch.models import attention as attn_lib, embedding, layers
+from repro_torch.training import tree as tree_lib
 from repro_torch.training.losses import bce_with_logits
 
 Params = Dict[str, Any]
@@ -100,6 +101,12 @@ def init_recsys(generator: torch.Generator, cfg: RecsysConfig, *,
                                             cfg.embed_dim, cfg.pq,
                                             codes=codes, centroids=centroids)
     return to_device(p, dev)
+
+
+def abstract_recsys(cfg: RecsysConfig) -> Params:
+    """:func:`init_recsys`'s tree on meta: no storage, no draw."""
+    return tree_lib.eval_shape(init_recsys, torch.Generator(), cfg,
+                               device="cpu")
 
 
 def batch_tensors(batch: Dict[str, np.ndarray], device) -> Dict[str,

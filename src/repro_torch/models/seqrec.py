@@ -18,6 +18,7 @@ from repro_torch.configs.base import AttentionConfig, SeqRecConfig
 from repro_torch.core import retrieval_head
 from repro_torch.interop import to_device
 from repro_torch.models import attention as attn_lib, layers
+from repro_torch.training import tree as tree_lib
 
 Params = Dict[str, Any]
 
@@ -57,6 +58,11 @@ def init_seqrec(generator: torch.Generator, cfg: SeqRecConfig, *,
     if cfg.backbone == "bert4rec":
         p["mask_emb"] = torch.randn((cfg.d_model,), generator=generator) * 0.02
     return to_device(p, device)
+
+
+def abstract_seqrec(cfg: SeqRecConfig) -> Params:
+    """:func:`init_seqrec`'s tree on meta: no storage, no draw."""
+    return tree_lib.eval_shape(init_seqrec, torch.Generator(), cfg)
 
 
 def _encode(params: Params, x: torch.Tensor, cfg: SeqRecConfig,

@@ -33,6 +33,7 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.core import retrieval_head, topk as topk_lib
 from repro_torch.interop import to_device
 from repro_torch.models import attention, layers, moe as moe_lib
+from repro_torch.training import tree as tree_lib
 
 Params = Dict[str, Any]
 
@@ -130,6 +131,11 @@ def init_lm(generator: torch.Generator, cfg: LMConfig, *,
     return p
 
 
+def abstract_lm(cfg: LMConfig) -> Params:
+    """:func:`init_lm`'s tree on meta: no storage, no draw."""
+    return tree_lib.eval_shape(init_lm, torch.Generator(), cfg)
+
+
 def layer_types(cfg: LMConfig) -> np.ndarray:
     """Per-layer is_global flags (sliding/global interleave)."""
     return np.array([cfg.attention.layer_is_global(i)
@@ -220,10 +226,14 @@ def _uniform_layers(cfg: LMConfig) -> bool:
     return bool(layer_types(cfg).all()) and cfg.scan_layers
 
 
-def init_caches(cfg: LMConfig, batch: int, max_len: int, *, device="cpu"):
+def init_caches(cfg: LMConfig, batch: int, max_len: int, *, device="cpu",
+                abstract: bool = False):
     """KV caches in ``cfg.dtype``: one stacked (L, B, S, H, D) pair for an
     all-global arch with stacked layers, else a per-layer list (sliding
-    layers get a ring of ``min(window, max_len)`` slots)."""
+    layers get a ring of ``min(window, max_len)`` slots).
+    ``abstract=True`` gives the same tree on meta (no storage)."""
+    if abstract:
+        device = "meta"
     dtype = _dtype(cfg.dtype)
     if _uniform_layers(cfg):
         a = cfg.attention

@@ -71,6 +71,11 @@ def adamw_init(params: Params, cfg: AdamWConfig) -> Dict[str, Any]:
             "v": tree_lib.tree_map(zeros, params)}
 
 
+def abstract_adamw(params: Params, cfg: AdamWConfig) -> Dict[str, Any]:
+    """:func:`adamw_init`'s state on meta (no storage)."""
+    return adamw_init(tree_lib.to_meta(params), cfg)
+
+
 def global_norm(tree: Params) -> torch.Tensor:
     """sqrt of the sum of the float leaves' squares, summed in the
     reference's leaf order."""
@@ -171,6 +176,12 @@ def adafactor_init(params: Params, cfg: AdafactorConfig) -> Dict[str, Any]:
     dev = next(iter(tree_lib.leaves(params))).device
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
             "v": tree_lib.tree_map(leaf, params)}
+
+
+def abstract_adafactor(params: Params, cfg: AdafactorConfig
+                       ) -> Dict[str, Any]:
+    """:func:`adafactor_init`'s state on meta (no storage)."""
+    return adafactor_init(tree_lib.to_meta(params), cfg)
 
 
 @torch.no_grad()

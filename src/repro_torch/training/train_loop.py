@@ -107,8 +107,11 @@ def make_train_step(loss_fn: LossFn, opt_cfg: opt_lib.AdamWConfig, *,
 
 def init_opt_state(params, opt_cfg: opt_lib.AdamWConfig, *,
                    powersgd: bool = False, abstract: bool = False):
-    if powersgd or abstract:
+    """AdamW state for ``params``; ``abstract=True`` gives it on meta (the
+    dry run's stand-in, no storage)."""
+    if powersgd:
         raise NotImplementedError(
-            "PowerSGD error feedback (ROADMAP A 6b) and abstract state "
-            "(the dry run, ROADMAP A 8) are not ported yet")
-    return opt_lib.adamw_init(params, opt_cfg)
+            "PowerSGD error feedback is training over a mesh, not ported "
+            "yet (ROADMAP A 6b)")
+    mk = opt_lib.abstract_adamw if abstract else opt_lib.adamw_init
+    return mk(params, opt_cfg)

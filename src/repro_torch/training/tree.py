@@ -10,11 +10,19 @@ data fields in their registration order (``ARRAY_FIELDS``), absent
 (``None``) fields and ``None`` leaves contributing nothing.  The walks
 below follow that order, so sums over leaves (``global_norm``) and
 checkpoint keys (``path_str``) match the reference's.
+
+Abstract state (the reference's ``jax.ShapeDtypeStruct`` trees) is a tree
+of tensors on ``torch.device("meta")``: shapes and dtypes, no storage.
+:func:`eval_shape` is ``jax.eval_shape``: it runs a function under
+``FakeTensorMode``, which allocates nothing and draws from no generator,
+and returns its output tree on meta.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Iterator, Tuple
+
+import torch
 
 from repro_torch.core.pruning import ARRAY_FIELDS, PrunedHeadState
 
@@ -87,3 +95,26 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
 def unzip(tree: Any, n: int) -> Tuple[Any, ...]:
     """A tree whose leaves are ``n``-tuples -> ``n`` trees."""
     return tuple(tree_map(lambda t, i=i: t[i], tree) for i in range(n))
+
+
+def meta_like(t: Any) -> Any:
+    """A tensor's meta stand-in (same shape and dtype); non-tensors as
+    they are."""
+    if isinstance(t, torch.Tensor):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+    return t
+
+
+def to_meta(tree: Any) -> Any:
+    """Every tensor leaf of ``tree`` as a meta tensor."""
+    return tree_map(meta_like, tree)
+
+
+def eval_shape(fn: Callable[..., Any], *args: Any, **kwargs: Any) -> Any:
+    """``fn(*args, **kwargs)``'s output tree on meta, computed without
+    storage: under ``FakeTensorMode`` every tensor op gives a shape-only
+    tensor, and a random draw advances no generator."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        out = fn(*args, **kwargs)
+    return to_meta(out)
