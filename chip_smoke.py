@@ -74,13 +74,17 @@ against the CPU; both kernels at its vocabulary shape; one AdamW step at
 ``minibatch_lg`` with its edges cut tenfold (host, copy and card split),
 ``ogb_products`` at full size (step ms, peak memory, a profile),
 ``full_graph_sm`` and ``molecule`` against the CPU, and the train
-launcher.  Last, the one-card dry run (``dryrun_phase``): every (arch x
+launcher.  Then the one-card dry run (``dryrun_phase``): every (arch x
 active shape) cell at full width on meta tensors, in processes of its
 own on the host (arguments and peak bytes, flops, bytes, launches, the
 roofline's bound at the H100's peaks), then the prediction held to six
 cells run on the card from a seed: kernel launches and flops exactly,
 the arguments' allocation to their bytes, the peak within a stated
-tolerance.  Both kernel sources are built at once, one
+tolerance.  Last, the serve-path analysis (``analysis_phase``,
+``repro_torch.analysis``): its 16 registered routes on the card and on
+meta and four of them at full width, each batch's launches, host reads
+and sync-debug warnings as documented and its launches equal to the
+CUDA counters.  Both kernel sources are built at once, one
 nvcc each; a pqtopk instance for a width the configs use (m = 2, 4, 6, 8)
 with a stack frame fails the run.  Prints the card's name and power limit,
 the pqtopk launch plans, kernel and per-method timings, a JSON line of
@@ -771,13 +775,8 @@ def reset_counts():
 
 
 def read_counts():
-    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
-    from repro_torch.kernels.pqtopk import kernel
-    return {"pq_topk_fused": kernel.pq_topk_fused_cuda.launches,
-            "pq_topk_fused_2d": kernel.pq_topk_fused_cuda.launches_2d,
-            "pq_topk_fused_live": kernel.pq_topk_fused_cuda.launches_live,
-            "pq_scores": kernel.pq_scores_cuda.launches,
-            "embedding_bag": eb_kernel.embedding_bag_cuda.launches}
+    from repro_torch.analysis.core import cuda_counts
+    return cuda_counts()
 
 
 def expect_counts(what, got, **want):
@@ -873,6 +872,7 @@ def hier_phase(dev, n_sms):
     import gc
     import numpy as np
     import torch
+    from repro_torch.analysis.entrypoints import expected_launches
     from repro_torch.core import pruning
     from repro_torch.examples import billion_item_sim as sim
     from repro_torch.kernels.pqtopk import ops
@@ -902,8 +902,8 @@ def hier_phase(dev, n_sms):
                 hv, hi, hst = pruning.cascade_topk_ingraph(
                     codes, s, K, hier, return_stats=True)
                 torch.cuda.synchronize()
-                expect_counts(what, read_counts(), pq_topk_fused=1,
-                              pq_scores=1)
+                expect_counts(what, read_counts(),
+                              **expected_launches("flat_hier", 1))
                 if not (torch.equal(fv, ev) and torch.equal(fi, ei)
                         and torch.equal(hv, ev) and torch.equal(hi, ei)):
                     raise AssertionError(f"{what}: a cascade differs from "
@@ -1113,6 +1113,7 @@ def serve_paths(params, cfg, dev):
     counts and engine stats (with its ``req_s``: requests over the wall
     time of its serve), and each path's results."""
     import numpy as np
+    from repro_torch.analysis.entrypoints import expected_launches
     from repro_torch.serving.engine import RetrievalEngine
     grouped_cfg = replace(cfg, pq=replace(cfg.pq, query_grouping=True))
     super_params, super_cfg = super_model(params, cfg)
@@ -1137,14 +1138,14 @@ def serve_paths(params, cfg, dev):
     # Each path is served with the counts at 0 and read just after; each
     # must launch its own kernels once per batch and the others not at all.
     n_batches = -(-N_REQUESTS // MAX_BATCH)
-    expected = {"pqtopk_fused": {"pq_topk_fused": n_batches},
-                "pqtopk_kernel": {"pq_scores": n_batches},
-                "pqtopk": {},
-                "pqtopk_pruned": {"pq_topk_fused": n_batches,
-                                  "pq_scores": n_batches},
-                "pqtopk_pruned_grouped": {"pq_topk_fused_2d": n_batches},
-                "pqtopk_pruned_super": {"pq_topk_fused": n_batches,
-                                        "pq_scores": n_batches}}
+    expected = {
+        "pqtopk_fused": expected_launches("flat_fused", n_batches),
+        "pqtopk_kernel": {"pq_scores": n_batches},
+        "pqtopk": {},
+        "pqtopk_pruned": expected_launches("engine_aot", n_batches),
+        "pqtopk_pruned_grouped": expected_launches("engine_aot_grouped",
+                                                   n_batches),
+        "pqtopk_pruned_super": expected_launches("flat_hier", n_batches)}
     outs, launches, walls = {}, {}, {}
     for name, _, _, _ in paths:
         reset_counts()
@@ -1339,6 +1340,7 @@ def mutable_path(params, cfg, dev, n_sms, frozen_stats):
     masked cascade's time split and the live kernel's record."""
     import numpy as np
     import torch
+    from repro_torch.analysis.entrypoints import expected_launches
     from repro_torch.core import pruning, scoring
     from repro_torch.core.mutation import MutableHeadState
     from repro_torch.core.pruning import ARRAY_FIELDS
@@ -1376,7 +1378,7 @@ def mutable_path(params, cfg, dev, n_sms, frozen_stats):
                 log, seed=4)
             got = read_counts()
             expect_counts(f"pqtopk_pruned_mutable {label}", got,
-                          pq_topk_fused_live=n_batches, pq_scores=n_batches)
+                          **expected_launches("engine_mutable", n_batches))
             st = eng.stats()
             if st["n_compiles"] != n_compiles or st["n_swaps"] != swaps:
                 raise AssertionError(
@@ -1839,6 +1841,7 @@ def router_phase(params, cfg, dev, fused_out, path_stats):
     masked oracle's."""
     import numpy as np
     import torch
+    from repro_torch.analysis.entrypoints import expected_launches
     from repro_torch.core.mutation import MutableHeadState
     from repro_torch.core.pruning import ARRAY_FIELDS
     from repro_torch.launch.serve import _churn_ops
@@ -1863,7 +1866,8 @@ def router_phase(params, cfg, dev, fused_out, path_stats):
         res, wall = drive(router, hist)
         settle(router)
         jobs = launched_jobs(router)
-        expect_counts("router healthy K=2", read_counts(), pq_topk_fused=jobs)
+        expect_counts("router healthy K=2", read_counts(),
+                      **expected_launches("flat_fused", jobs))
         if sorted(res) != list(range(N_REQUESTS)):
             raise AssertionError("router healthy: not one Result per request")
         n = check_untagged("router healthy", res, fused_out)
@@ -1893,7 +1897,8 @@ def router_phase(params, cfg, dev, fused_out, path_stats):
                 raise AssertionError("chaos: replica 1 never re-admitted")
         settle(router)
         jobs = launched_jobs(router)
-        expect_counts("router chaos K=3", read_counts(), pq_topk_fused=jobs)
+        expect_counts("router chaos K=3", read_counts(),
+                      **expected_launches("flat_fused", jobs))
         if sorted(res) != sorted(router._expected) \
                 or router._expected != router._done_ids:
             raise AssertionError("chaos: not exactly one Result per request")
@@ -1944,7 +1949,8 @@ def router_phase(params, cfg, dev, fused_out, path_stats):
                 raise AssertionError("ladder did not recover to level 0")
         settle(router)
         jobs = launched_jobs(router)
-        expect_counts("router ladder", read_counts(), pq_topk_fused=jobs)
+        expect_counts("router ladder", read_counts(),
+                      **expected_launches("flat_fused", jobs))
         tags = {}
         for rid, r in res.items():
             tags[r.degraded] = tags.get(r.degraded, 0) + 1
@@ -1989,7 +1995,7 @@ def router_phase(params, cfg, dev, fused_out, path_stats):
                 settle(router)
                 jobs = launched_jobs(router)
                 expect_counts(f"router {what}", read_counts(),
-                              pq_topk_fused=jobs)
+                              **expected_launches("flat_fused", jobs))
                 check_untagged(f"router {what}", res, fused_out)
                 router_line(f"scaling K={n_rep}", router, res, wall,
                             window=window)
@@ -2037,7 +2043,7 @@ def router_phase(params, cfg, dev, fused_out, path_stats):
         settle(router)
         jobs = launched_jobs(router)
         expect_counts("router durable K=2", read_counts(),
-                      pq_topk_fused_live=jobs, pq_scores=jobs)
+                      **expected_launches("router_durable", jobs))
         writer = router._writer_state
         for rid in range(2):
             st = router._replica_states[rid]
@@ -3504,6 +3510,83 @@ def dryrun_phase(dev):
     return total
 
 
+ANALYSIS_OUT = os.path.join("chiprun_out", "analysis_torch.json")
+
+
+def analysis_phase(dev, params, cfg):
+    """The serve-path analysis (ROADMAP A 8b, ``repro_torch.analysis``):
+    the whole registry on the card and on meta, then ``FULL_WIDTH``'s
+    entries on the full-width model (``params``, ``cfg``).  Every pass
+    must pass (host reads, launches and sync-debug warnings per batch as
+    documented; uploads; variants; kernel contracts; the AST lint), and
+    each entry's recorded launches must equal the rise of the CUDA
+    counters (``read_counts``) over its recorded batch, so no plain
+    version ran on the card.  Each kernel instance's launch plans, over
+    both card runs together, must fit its launch cache.  Prints an
+    ``analysis`` line per (entry, pass) and the JSON reports on one line
+    (also written to :data:`ANALYSIS_OUT`).  Its launches are checks, so
+    they join no row of the kernel table."""
+    from repro_torch.analysis import entrypoints as ep
+    from repro_torch.analysis import run_default
+    from repro_torch.analysis.passes.variants import K_CACHE_SIZES
+    t_phase = time.monotonic()
+    card = card_line()
+    total, docs, plans = {}, {}, {}
+    runs = (("card", "cuda", None, None),
+            ("meta", "meta", None, None),
+            ("full width", "cuda", ep.FULL_WIDTH, ep.Fixture(params, cfg)))
+    for label, device, names, fixture in runs:
+        t0 = time.monotonic()
+        rep = run_default(names, device=device, fixture=fixture)
+        for r in rep.results:
+            info = ",".join(f"{k}={v}" for k, v in sorted(r.info.items())
+                            if k not in ("roots",))
+            print(f"analysis {label} {r.entrypoint} {r.pass_name}: "
+                  f"{r.status} {info}")
+        if not rep.ok:
+            print(rep.render())
+            raise AssertionError(f"analysis {label}: "
+                                 f"{len(rep.errors)} error finding(s)")
+        for name in (names or ep.REGISTRY):
+            info = rep.result(name, "host-reads").info
+            if device != "cuda":
+                continue
+            for inst, sizes in rep.result(
+                    name, "variants").info["plan_sizes"].items():
+                plans.setdefault(inst, set()).update(sizes)
+            if info["launches"] != info["cuda_launches"]:
+                raise AssertionError(
+                    f"analysis {label} {name}: recorded launches "
+                    f"{info['launches']} but the CUDA counters rose by "
+                    f"{info['cuda_launches']}")
+            for form, n in info["launches"].items():
+                total[form] = total.get(form, 0) + n
+            print(f"analysis {label} {name}: launches {info['launches']} = "
+                  f"CUDA counters; host reads {info['host_reads']} "
+                  f"(documented {ep.DOCUMENTED[name][1]}), syncs "
+                  f"{info['syncs']} = reads + result read's "
+                  f"{info['result_syncs']} + blocking uploads "
+                  f"{info['cuda_uploads']} (documented "
+                  f"{ep.DOCUMENTED[name][2]}) on {card}")
+        docs[label] = rep.to_json()
+        print(f"analysis {label}: {len(rep.results)} cells ok in "
+              f"{time.monotonic() - t0:.1f}s ({rep.meta['seconds']})")
+    for inst, sizes in sorted(plans.items()):
+        print(f"analysis plans {inst}: {len(sizes)} shared-memory sizes "
+              f"over both card runs (cache {K_CACHE_SIZES}): {sorted(sizes)}")
+        if len(sizes) > K_CACHE_SIZES:
+            raise AssertionError(f"analysis: kernel instance {inst} "
+                                 f"launches at {len(sizes)} shared-memory "
+                                 f"sizes, past its {K_CACHE_SIZES}-entry "
+                                 "launch cache")
+    os.makedirs(os.path.dirname(ANALYSIS_OUT), exist_ok=True)
+    with open(ANALYSIS_OUT, "w") as f:
+        json.dump({"card": card, "reports": docs}, f, indent=1)
+    print(json.dumps({"analysis": docs}))
+    print(f"analysis phase: {time.monotonic() - t_phase:.1f}s; recorded "
+          f"batches launched {total}")
+
+
 EB_SRC = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
 RECSYS_ARCHS = ("bst", "dcn-v2", "dien", "fm")
 
@@ -4132,6 +4215,7 @@ def main(argv=None) -> int:
         if r["name"] in dry and dry[r["name"]]:
             r["launches"] += dry[r["name"]]
             print(f"dryrun launches {r['name']}: +{dry[r['name']]}")
+    analysis_phase(dev, params, cfg)
     bulk = bags["bst serve_bulk"]
     recs.append({
         "name": "embedding_bag", "route": "cuda", "source": EB_SRC,

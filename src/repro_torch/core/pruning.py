@@ -650,24 +650,23 @@ def seed_plan(codes: torch.Tensor, s: torch.Tensor, bounds: torch.Tensor,
 
 
 def _host_int(t: torch.Tensor, largest: int, what: str) -> int:
-    """``int(t)``, a host read; of a meta tensor (the dry run), ``largest``,
-    the most the shapes allow (``kernels.cost.stand_in`` records it)."""
-    if t.is_meta:
-        return cost.stand_in(what, largest)
-    return int(t)
+    """``int(t)``, a host read (``kernels.cost.host_read`` records it); of
+    a meta tensor (the dry run), ``largest``, the most the shapes
+    allow."""
+    return cost.host_read(what, lambda: int(t), largest, of=t)
 
 
 def _read_flags(flags):
     """0-d bool tensors (one per shard, maybe on several devices) read to
     the host in one read.  Meta flags read as False (not yet stable: the
     seed grows to its largest size)."""
-    if flags[0].is_meta:
-        return [cost.stand_in("pruning._read_flags: seed stability", False)
-                for _ in flags]
-    if len(flags) == 1:
-        return [bool(flags[0])]
-    lead = flags[0].device
-    return torch.stack([f.to(lead) for f in flags]).tolist()
+    def read():
+        if len(flags) == 1:
+            return [bool(flags[0])]
+        lead = flags[0].device
+        return torch.stack([f.to(lead) for f in flags]).tolist()
+    return cost.host_read("pruning._read_flags: seed stability", read,
+                          [False] * len(flags), of=flags)
 
 
 def run_seed_plans(plans, k: int,
@@ -1086,13 +1085,10 @@ def cascade_topk_ingraph(codes: torch.Tensor, s: torch.Tensor, k: int,
             union = pq_mask.any(dim=0).sum(dtype=torch.int32)
             # The one host read of the batch: group counts and the union
             # count.
-            if counts.is_meta:
-                *group_counts, count = [cost.stand_in(
-                    "pruning.cascade_topk_ingraph: group and union counts",
-                    t_total)] * (counts.shape[0] + 1)
-            else:
-                *group_counts, count = torch.cat(
-                    [counts, union[None]]).tolist()
+            *group_counts, count = cost.host_read(
+                "pruning.cascade_topk_ingraph: group and union counts",
+                lambda: torch.cat([counts, union[None]]).tolist(),
+                [t_total] * (counts.shape[0] + 1), of=counts)
             max_group = max(group_counts)
             vals, ids, rung = kernel_ops.pq_topk_tiles_ladder(
                 codes, s[perm], k, [slots2d[:, :r] for r in rungs],

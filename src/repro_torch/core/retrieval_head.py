@@ -407,7 +407,10 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
             with on_device(devs[i]):
                 sup.append(pruning.compact_mask(pruning.survival_mask(
                     bounds[i], theta_sh[i])))
-        sup_counts = sharding.host_values([c for _, c in sup], mesh)
+        sup_counts = sharding.host_values(
+            [c for _, c in sup], mesh,
+            "retrieval_head.top_items_pruned_sharded: super survivor "
+            "counts", s_per_shard)
         sup_rungs = pruning.normalize_ladder(
             pruning.default_super_ladder(s_per_shard)
             if super_ladder is None else super_ladder,
@@ -429,7 +432,9 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
                 tails[i] = (i_sup, r_sup) + pruning.compact_values(
                     pruning.survival_mask(cb, theta_sh[i]) & valid, gid_t)
         counts = dict(zip(tails, sharding.host_values(
-            [t[3] for t in tails.values()], mesh) if tails else []))
+            [t[3] for t in tails.values()], mesh,
+            "retrieval_head.top_items_pruned_sharded: child survivor "
+            "counts", t_local) if tails else []))
         for i in shards:
             if i not in tails:
                 out[i] = (torch.full((bq, k_local), float("-inf"),
@@ -465,7 +470,10 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
                 union = pq_mask.any(dim=0).sum(dtype=torch.int32)
                 grp_out.append((perm, inv, slots2d,
                                 torch.cat([gcounts, union[None]])))
-        counts = sharding.host_values([g[3] for g in grp_out], mesh)
+        counts = sharding.host_values(
+            [g[3] for g in grp_out], mesh,
+            "retrieval_head.top_items_pruned_sharded: group and union "
+            "counts", t_local)
         for i in shards:
             perm, inv, slots2d, _ = grp_out[i]
             *gcounts, union = counts[i]
@@ -485,7 +493,10 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
             with on_device(devs[i]):
                 flat.append(pruning.compact_mask(pruning.survival_mask(
                     bounds[i], theta_sh[i])))
-        counts = sharding.host_values([c for _, c in flat], mesh)
+        counts = sharding.host_values(
+            [c for _, c in flat], mesh,
+            "retrieval_head.top_items_pruned_sharded: survivor counts",
+            t_local)
         for i in shards:
             r = pruning._rung(counts[i], rungs)
             with on_device(devs[i]):

@@ -32,6 +32,8 @@ from typing import Any, List, Sequence
 
 import torch
 
+from repro_torch.kernels import cost
+
 AXIS = "model"
 
 
@@ -96,10 +98,18 @@ def psum(parts: Sequence[torch.Tensor], mesh) -> torch.Tensor:
     return torch.stack(_gathered(parts, mesh)).sum(dim=0)
 
 
-def host_values(parts: Sequence[torch.Tensor], mesh) -> list:
+def host_values(parts: Sequence[torch.Tensor], mesh, what: str,
+                largest: int) -> list:
     """Every shard's tensor read to the host in ONE read: stacked on the
-    lead device, then one ``tolist`` -> a list per shard."""
-    return torch.stack(_gathered(parts, mesh)).tolist()
+    lead device, then one ``tolist`` -> a list per shard.  The read is
+    ``kernels.cost.host_read``'s, named ``what``; on meta every value is
+    ``largest`` (the most the shapes allow)."""
+    def stand_in():
+        return [largest if p.dim() == 0 else [largest] * p.shape[0]
+                for p in parts]
+    return cost.host_read(
+        what, lambda: torch.stack(_gathered(parts, mesh)).tolist(),
+        stand_in, of=parts)
 
 
 # ---------------------------------------------------------------------------

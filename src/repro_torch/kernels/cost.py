@@ -11,10 +11,19 @@ least time the card could take (the kernel table's bound in ``PERF.md``);
 the card, a meta branch on meta tensors, the plain version on the CPU).
 Outside a :func:`recording` block it only calls the body.  Inside one it
 also records the launch, keyed by the wrapper's form (the keys of
-``chip_smoke.py: read_counts``), with its work, whatever the inputs'
-device, and hides the body's own aten ops from the recorder's observers
+``chip_smoke.py: read_counts``), with its work and its plan inputs
+(:class:`LaunchInputs`), whatever the inputs' device, and hides the
+body's own aten ops from the recorder's observers
 (:attr:`Recorder.hidden`), so a step counts the same work on meta, on the
 CPU and on the card.
+
+:func:`host_read` is the one way the serve path reads a device value on
+the host: a CPU or CUDA tensor is read, a meta tensor gives the largest
+value its shapes allow, and inside a recording block every read is
+listed by name (:attr:`Recorder.host_reads`).  A read that bypasses it
+raises on meta (``Tensor.item()`` and copies out of meta tensors have no
+data), which is how the serve-path analysis (``repro_torch.analysis``)
+finds it.
 """
 from __future__ import annotations
 
@@ -93,28 +102,66 @@ def embedding_bag_work(v: int, d: int, n_bags: int, bag: int,
                 + n_bags * d * 4, 2 * slots * d, 0)
 
 
+@dataclass(frozen=True)
+class LaunchInputs:
+    """What one pqtopk launch's plan and contract depend on: ``kind``
+    ("scores" or "fused", ``kernel.plan_launch``'s), the shapes, the
+    code dtype's bytes, and for the fused kernel the item tile, the 2D
+    table's batch tile (0 for a 1D list), the ``live`` mask, the slot
+    count and the slot table itself (a tensor on the launch's device);
+    ``dtype`` names the codes' dtype."""
+    form: str
+    kind: str
+    n: int
+    m: int
+    b: int
+    bq: int
+    code_bytes: int
+    k: int = 0
+    n_items: int = 0
+    tile: int = 0
+    batch_tile: int = 0
+    live: bool = False
+    slots: int = 0
+    table: Any = None
+    dtype: str = ""
+
+    def plan_key(self):
+        """The arguments of ``kernel.plan_launch`` for this launch."""
+        return (self.kind, self.m, self.b, self.bq, self.code_bytes,
+                self.n if self.kind == "scores" else 0, self.tile,
+                self.batch_tile, self.live)
+
+
 @dataclass
 class Recorder:
     """Launches and work of the kernel wrappers called inside one
     :func:`recording` block.  ``on_launch(name, work, outputs)``, if set,
     sees each launch's outputs (the dry run tracks their storage);
-    ``hidden`` > 0 while a wrapper's body runs; ``stand_ins`` lists the
-    host reads of a meta tensor that took their largest value."""
+    ``hidden`` > 0 while a wrapper's body runs; ``inputs`` lists each
+    launch's :class:`LaunchInputs` (pqtopk launches); ``host_reads`` names
+    every :func:`host_read` in order, and ``stand_ins`` those of a meta
+    tensor, which took their largest value."""
     launches: Dict[str, int] = field(
         default_factory=lambda: dict.fromkeys(FORMS, 0))
     work: Dict[str, Dict[str, int]] = field(
         default_factory=lambda: {f: {"bytes": 0, "adds": 0, "lookups": 0}
                                  for f in FORMS})
+    inputs: List[LaunchInputs] = field(default_factory=list)
+    host_reads: List[str] = field(default_factory=list)
     stand_ins: List[str] = field(default_factory=list)
     on_launch: Optional[Callable[[str, Work, Any], None]] = None
     hidden: int = 0
 
-    def add(self, name: str, work: Work, outputs: Any) -> None:
+    def add(self, name: str, work: Work, outputs: Any,
+            inputs: Optional[LaunchInputs] = None) -> None:
         self.launches[name] += 1
         w = self.work[name]
         w["bytes"] += work.bytes
         w["adds"] += work.adds
         w["lookups"] += work.lookups
+        if inputs is not None:
+            self.inputs.append(inputs)
         if self.on_launch is not None:
             self.on_launch(name, work, outputs)
 
@@ -144,10 +191,11 @@ def recording(recorder: Optional[Recorder] = None):
         _ACTIVE.remove(rec)
 
 
-def launch(name: str, work: Callable[[], Work], body: Callable[[], Any]):
+def launch(name: str, work: Callable[[], Work], body: Callable[[], Any],
+           inputs: Optional[Callable[[], LaunchInputs]] = None):
     """Run one wrapper's kernel ``body`` (returns its outputs); inside a
     :func:`recording` block, record the launch as ``name`` with
-    ``work()``, the body's aten ops hidden."""
+    ``work()`` and ``inputs()``, the body's aten ops hidden."""
     rec = active()
     if rec is None:
         return body()
@@ -156,14 +204,22 @@ def launch(name: str, work: Callable[[], Work], body: Callable[[], Any]):
         out = body()
     finally:
         rec.hidden -= 1
-    rec.add(name, work(), out)
+    rec.add(name, work(), out, None if inputs is None else inputs())
     return out
 
 
-def stand_in(what: str, value):
-    """A host read of a meta tensor: record it (inside a recording
-    block) and return ``value``, the largest the shapes allow."""
+def host_read(what: str, read: Callable[[], Any], largest, *, of):
+    """A host read of the device value(s) in ``of`` (a tensor, or the
+    first of a sequence): ``read()`` on the CPU or the card; on meta,
+    ``largest`` (called first if callable), the most the shapes allow,
+    and the read is noted as a stand-in.  Inside a recording block the
+    read is listed as ``what``."""
+    t = of[0] if isinstance(of, (list, tuple)) else of
     rec = active()
     if rec is not None:
-        rec.stand_ins.append(what)
-    return value
+        rec.host_reads.append(what)
+    if t.is_meta:
+        if rec is not None:
+            rec.stand_ins.append(what)
+        return largest() if callable(largest) else largest
+    return read()

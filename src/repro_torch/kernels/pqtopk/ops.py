@@ -5,8 +5,9 @@ tensor on the CPU goes to the kernel's plain version in :mod:`ref`; a
 meta tensor (the dry run) gets meta outputs of the kernel's shapes and
 dtypes, and nothing is computed, built or loaded.  Each call of
 :func:`pq_scores` or :func:`pq_topk_slots` is one launch that
-:func:`repro_torch.kernels.cost.launch` records, with its work, inside a
-recording block, on any device.  The
+:func:`repro_torch.kernels.cost.launch` records, with its work and its
+plan inputs (the slot table included), inside a recording block, on any
+device.  The
 wrappers own the item-tile rule ``tile = min(2048, round_up(N, 128))``
 and the ``k > tile`` error, which the engine's ``max_k`` and the slot
 count depend on, and the cross-slot merge of the fused kernel's winners.
@@ -118,7 +119,10 @@ def pq_scores(codes: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
     return _cost.launch("pq_scores", lambda: _cost.pq_scores_work(
         codes.shape[0], codes.shape[1], codes.element_size(), s.shape[0],
-        s.shape[2]), body)
+        s.shape[2]), body, lambda: _cost.LaunchInputs(
+            "pq_scores", "scores", codes.shape[0], codes.shape[1],
+            s.shape[2], s.shape[0], codes.element_size(),
+            dtype=str(codes.dtype)))
 
 
 def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
@@ -150,7 +154,11 @@ def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
     return _cost.launch(form, lambda: _cost.pq_topk_fused_work(
         codes.shape[0], codes.shape[1], codes.element_size(), s.shape[0],
         s.shape[2], k, slots, tile_idx.shape[0] if tile_idx.dim() == 2
-        else 1, tile, live is not None), body)
+        else 1, tile, live is not None), body, lambda: _cost.LaunchInputs(
+            form, "fused", codes.shape[0], codes.shape[1], s.shape[2],
+            s.shape[0], codes.element_size(), k=k, n_items=n_items,
+            tile=tile, batch_tile=batch_tile, live=live is not None,
+            slots=slots, table=tile_idx, dtype=str(codes.dtype)))
 
 
 def pq_topk(codes: torch.Tensor, s: torch.Tensor, k: int, *,

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.pruning import ARRAY_FIELDS, PrunedHeadState
+from repro_torch.kernels import cost
 from repro_torch.training.fault_tolerance import (SimulatedFailure,
                                                   StragglerMonitor)
 
@@ -151,6 +152,16 @@ def _to_pinned(t: torch.Tensor) -> torch.Tensor:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     return host
+
+
+def _read_result(ts) -> List[np.ndarray]:
+    """A batch's outputs read to the host as numpy arrays: the engine's
+    one result read (``kernels.cost.host_read`` names it ``result``; on
+    meta the arrays are zeros of the outputs' shapes)."""
+    return cost.host_read(
+        "result", lambda: [t.cpu().numpy() for t in ts],
+        lambda: [np.zeros(t.shape, str(t.dtype).replace("torch.", ""))
+                 for t in ts], of=ts)
 
 
 def _tensor_sig(t: torch.Tensor):
@@ -619,7 +630,7 @@ class RetrievalEngine:
         if len(out) == 3:
             # A pruned route with a ladder: the third output is the rung.
             self.rung_counts[int(out[2])] += 1
-        ids, scores = (t.cpu().numpy() for t in out[:2])
+        ids, scores = _read_result(out[:2])
         if self.faults is not None:
             delay = self.faults.delay_s(prep.batch_index)
             if delay:
@@ -753,7 +764,7 @@ class DecodeEngine:
         tokens = torch.from_numpy(self.slot_token.copy()).to(self.device)
         pos = torch.from_numpy(self.slot_pos.copy()).to(self.device)
         nxt, self.caches = self._decode(tokens, pos, self.caches)
-        nxt = nxt.cpu().numpy()
+        nxt, = _read_result((nxt,))
         for s in active:
             self.slot_out[s].append(int(nxt[s]))
             self.slot_token[s] = int(nxt[s])

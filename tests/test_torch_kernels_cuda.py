@@ -826,3 +826,19 @@ def test_gnn_losses_on_the_card_match_the_cpu(cuda_device):
                                                     for x in leaves]
         for a, b in zip(out["cuda"], out["cpu"], strict=True):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_analysis_registry_on_the_card(cuda_device):
+    """The serve-path analysis over the whole registry on the card: every
+    pass passes (sync-debug warnings included), and each entry's recorded
+    launches equal its documented ones and the CUDA counters' rise."""
+    from repro_torch.analysis import entrypoints as ep
+    from repro_torch.analysis import run_default
+    report = run_default(device="cuda")
+    assert report.ok, report.render()
+    for name in ep.REGISTRY:
+        info = report.result(name, "host-reads").info
+        assert info["launches"] == info["cuda_launches"] \
+            == ep.DOCUMENTED[name][0], (name, info)
+        assert info["host_reads"] == ep.DOCUMENTED[name][1], (name, info)
+        assert info["cuda_uploads"] == ep.DOCUMENTED[name][2], (name, info)

@@ -406,8 +406,8 @@ def test_collectives_and_row_blocks():
         [0.0] * 3 + [1.0] * 3 + [2.0] * 3 + [3.0] * 3
     assert tshd.pmax(parts, mesh).tolist() == [[3.0] * 3] * 2
     assert tshd.psum(parts, mesh).tolist() == [[6.0] * 3] * 2
-    assert tshd.host_values([torch.tensor(i) for i in range(4)], mesh) == \
-        [0, 1, 2, 3]
+    assert tshd.host_values([torch.tensor(i) for i in range(4)], mesh,
+                            "counts", 3) == [0, 1, 2, 3]
     x = torch.arange(10 * 2).reshape(10, 2)
     blocks = tshd.shard_rows(x, mesh)
     assert [b.shape[0] for b in blocks] == [3] * 4
