@@ -84,7 +84,16 @@ tolerance.  Last, the serve-path analysis (``analysis_phase``,
 ``repro_torch.analysis``): its 16 registered routes on the card and on
 meta and four of them at full width, each batch's launches, host reads
 and sync-debug warnings as documented and its launches equal to the
-CUDA counters.  Both kernel sources are built at once, one
+CUDA counters.  Then training over the (pod, data, model) mesh
+(``mesh_phase``, ROADMAP A 6b): full-width SASRec-RecJPQ on
+(pod=2, data=2, model=2) positions of the one card, three PowerSGD steps
+with each pod's error-feedback identity and the exchanged gradients'
+rank checked, the step with ``grad_shardings`` timed (pod bodies,
+exchange, AdamW), one step against the CPU, a checkpoint restored with
+shardings onto (pod=1, data=4, model=2) and stepped, the trained weights
+served through both kernels bit-identical to the plain route; then
+qwen2.5-14b at full width cut to 2 layers, one PowerSGD step at 4,096
+tokens a pod, checked the same way.  Both kernel sources are built at once, one
 nvcc each; a pqtopk instance for a width the configs use (m = 2, 4, 6, 8)
 with a stack frame fails the run.  Prints the card's name and power limit,
 the pqtopk launch plans, kernel and per-method timings, a JSON line of
@@ -3587,6 +3596,424 @@ def analysis_phase(dev, params, cfg):
           f"batches launched {total}")
 
 
+# ---- training over the (pod, data, model) mesh ---------------------------
+
+MESH_STEPS = 3                  # checked PowerSGD steps at full width
+MESH_TIMED = 5                  # timed steps (median), after one warm-up
+MESH_POD_BATCH = 32             # sequences a pod (the launcher's batch)
+MESH_CPU_POD_BATCH = 4          # the card-against-CPU step
+MESH_REL = 1e-5                 # identity, rank and card-vs-CPU (relative)
+MESH_RANK, MESH_MIN_SIZE = 4, 65536
+MESH_SERVE_BATCHES = 10
+MESH_LM_ARCH, MESH_LM_LAYERS, MESH_LM_TOKENS = "qwen2.5-14b", 2, 4096
+MESH_SKETCH = 8                 # columns of the rank sketch of a big leaf
+MESH_EXACT_SVD = 1 << 22        # leaves up to this size: exact singular values
+MESH_CHUNK = 16384              # rows a check reads at a time
+
+
+class PodChecks:
+    """The exchange's probe (``trace["leaf"]``): for each compressed leaf
+    and pod, the error-feedback identity ``g_hat + e' == g + e`` (the
+    largest deviation over the largest ``|g + e|``, read in row chunks so
+    no whole float32 copy is made), and ``g_hat`` of rank <= 4: its
+    singular values past the 4th over its first, exactly for a leaf of up
+    to ``MESH_EXACT_SVD`` elements, else those of ``g_hat @ W`` for a
+    Gaussian W of ``MESH_SKETCH`` columns (a sketch keeps the rank).  The
+    worst of each is kept; either past ``MESH_REL`` fails the run."""
+
+    def __init__(self, what):
+        self.what, self.leaves, self.pods = what, 0, 0
+        self.worst_id = self.worst_rank = 0.0
+        self.sketched = 0
+
+    def __call__(self, key, g, e, g_hat, new_e):
+        import torch
+        m, n = g_hat.shape
+        for gi, ei, ni in zip(g, e, new_e):
+            err = scale = 0.0
+            for lo in range(0, m, MESH_CHUNK):
+                want = gi[lo:lo + MESH_CHUNK].float() + \
+                    ei[lo:lo + MESH_CHUNK].float()
+                got = g_hat[lo:lo + MESH_CHUNK] + ni[lo:lo + MESH_CHUNK]
+                err = max(err, float((got - want).abs().max()))
+                scale = max(scale, float(want.abs().max()))
+                del want, got
+            rel = err / scale if scale else err
+            self.worst_id = max(self.worst_id, rel)
+            self.pods += 1
+            if rel > MESH_REL:
+                raise AssertionError(f"{self.what} {key}: g_hat + e' "
+                                     f"differs from g + e by {rel:.3e}")
+        if m * n <= MESH_EXACT_SVD:
+            sv = torch.linalg.svdvals(g_hat)
+        else:
+            w = torch.randn((n, MESH_SKETCH), generator=torch.Generator()
+                            .manual_seed(len(key)), dtype=torch.float32)
+            sv = torch.linalg.svdvals(g_hat @ w.to(g_hat.device))
+            self.sketched += 1
+        top = float(sv[0])
+        ratio = float(sv[MESH_RANK:].max()) / top if top > 0 and \
+            sv.numel() > MESH_RANK else 0.0
+        self.worst_rank = max(self.worst_rank, ratio)
+        self.leaves += 1
+        if ratio > MESH_REL:
+            raise AssertionError(f"{self.what} {key}: g_hat has rank > "
+                                 f"{MESH_RANK} (sigma_5/sigma_1 {ratio:.3e})")
+
+    def line(self):
+        return (f"{self.leaves} compressed leaves x pods ({self.pods} "
+                f"pod checks): g_hat + e' == g + e within "
+                f"{self.worst_id:.3e}, singular values past the 4th at most "
+                f"{self.worst_rank:.3e} of the first ({self.sketched} leaves "
+                f"by a {MESH_SKETCH}-column sketch); both within {MESH_REL}")
+
+
+def marked_step(step, args, **trace):
+    """One step on ``args`` ([params, state, batch], emptied into the call,
+    so only the step holds them: its release of the old residual then
+    returns that memory before AdamW) with CUDA events after the pod
+    bodies, the exchange and AdamW -> (outputs, {part: ms}, synchronized
+    wall ms)."""
+    import torch
+    evs = {"start": torch.cuda.Event(enable_timing=True)}
+
+    def mark(name):
+        evs[name] = torch.cuda.Event(enable_timing=True)
+        evs[name].record()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evs["start"].record()
+    out = step(args.pop(0), args.pop(0), args.pop(0),
+               trace=dict(trace, mark=mark))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    names = ["start", "pods", "exchange", "update"]
+    split = {b: evs[a].elapsed_time(evs[b]) for a, b in zip(names, names[1:])}
+    return out, split, wall
+
+
+def mesh_phase(dev):
+    """Training over a multi-axis mesh on the card (ROADMAP A 6b): the
+    positions of ``make_test_mesh(multi_pod=True, devices=["cuda:0"] *
+    8)``, (pod=2, data=2, model=2), all on the one card, each pod's body
+    run in turn.
+
+    1. SASRec-RecJPQ at full width (N=1,271,638, d=512, S=200, m=8,
+       b=512, uint16 codes; random weights from seed 0), B=32 a pod:
+       three PowerSGD steps (rank 4, min_size 65,536), each checked by
+       :class:`PodChecks`; then the step with ``grad_shardings`` from the
+       seqrec rules, timed (median of 5: pod bodies, exchange, AdamW;
+       CUDA events) with its peak memory, the compression ratio and the
+       bytes a pod would exchange full and compressed;
+    2. one step (B=4 a pod) on the card and on the CPU from the trained
+       state (per-pod residuals): loss, the compressed leaves' g_hat,
+       every pod's residual and every parameter within 1e-5;
+    3. a checkpoint of that state (pod 0's residual on file), restored
+       with shardings onto (pod=1, data=4, model=2): every restored
+       residual equals pod 0's; one more step there;
+    4. the trained weights served through ``pqtopk_fused`` and
+       ``pqtopk_kernel``, bit-identical to ``pqtopk`` (launches counted:
+       they join the kernel table's rows);
+    5. qwen2.5-14b at full width cut to 2 layers, one sequence of 4,096
+       tokens a pod: one pod's forward and backward under the profiler
+       (also the warm-up), then the reference's ``powersgd`` LM step (its
+       optimizer config, the LM plan with ``pod`` stripped), checked as
+       in 1 (the stacked (2, d, f) leaves one matrix each), its split and
+       peak.
+    -> the serve launches by kernel."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.sharding import Varying
+    from repro_torch.interop import to_device
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import ShardMesh, make_test_mesh
+    from repro_torch.models import seqrec, transformer as T
+    from repro_torch.training import (checkpoint, compression, optimizer,
+                                      train_loop, tree)
+    card = card_line()
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mesh phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+          f"held at its start on {card}")
+    arch = get_config("sasrec-recjpq")
+    cfg = arch.model
+    mesh = make_test_mesh(multi_pod=True, devices=[dev] * 8)
+    assert dict(mesh.shape) == {"pod": 2, "data": 2, "model": 2}, mesh.shape
+    params = seqrec.init_seqrec(torch.Generator().manual_seed(0), cfg,
+                                device=dev)
+    ocfg = optimizer.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    data, loss_fn, _ = train_launcher.make_data(arch, 2 * MESH_POD_BATCH,
+                                                device=dev)
+
+    def batch():
+        return {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+
+    full, comp = compression.exchanged_elements(params, MESH_RANK,
+                                                MESH_MIN_SIZE)
+    ratio = compression.compression_ratio(params, MESH_RANK, MESH_MIN_SIZE)
+    print(f"mesh sasrec-recjpq: mesh {dict(mesh.shape)} on {mesh.lead} x8, "
+          f"B={MESH_POD_BATCH} a pod; compression_ratio {ratio:.6f}: a pod "
+          f"exchange moves {full * 4} bytes full, {comp * 4} compressed "
+          f"(float32; counted from the shapes)")
+
+    # ---- 1. checked steps, then the timed step with grad_shardings -----
+    step = train_loop.make_train_step(loss_fn, ocfg, powersgd_axis="pod",
+                                      mesh=mesh, powersgd_rank=MESH_RANK)
+    state = train_loop.init_opt_state(params, ocfg, powersgd=True)
+    checks, losses = PodChecks("mesh sasrec"), []
+    for _ in range(MESH_STEPS):
+        (params, state, m), _, _ = marked_step(
+            step, [params, state, batch()], leaf=checks)
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"mesh sasrec: losses {losses}")
+    pods = [e for e in tree.leaves(state["ef"]) if isinstance(e, Varying)]
+    if not pods or all(torch.equal(*e.parts) for e in pods):
+        raise AssertionError("mesh sasrec: the pods' residuals are one")
+    print(f"mesh sasrec checked: {MESH_STEPS} steps, losses "
+          + " -> ".join(f"{x:.4f}" for x in losses) + "; " + checks.line())
+    gs = shd.param_shardings(mesh, params, shd.seqrec_param_rules())
+    gstep = train_loop.make_train_step(
+        loss_fn, ocfg, powersgd_axis="pod", mesh=mesh, grad_shardings=gs,
+        powersgd_rank=MESH_RANK)
+    batches = [batch() for _ in range(MESH_TIMED + 1)]
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    splits, walls = [], []
+    for i in range(len(batches)):
+        with shd.record_constraints() as rec:
+            (params, state, m), split, wall = marked_step(
+                gstep, [params, state, batches.pop(0)])
+        if i:
+            splits.append(split)
+            walls.append(wall)
+    peak = torch.cuda.max_memory_allocated()
+    med = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    wall = statistics.median(walls)
+    print(f"mesh sasrec step (grad_shardings, {len(rec)} gradient "
+          f"constraints): median of {MESH_TIMED} {wall:.3f}ms wall; pod "
+          f"bodies {med['pods']:.3f}ms, exchange {med['exchange']:.3f}ms, "
+          f"AdamW {med['update']:.3f}ms (CUDA events); peak "
+          f"{(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB "
+          f"held; {2 * MESH_POD_BATCH / wall * 1e3:.1f} seq/s on {card}")
+    del batches
+
+    # ---- 2. the card against the CPU, one step -------------------------
+    cpu_data, _, _ = train_launcher.make_data(arch, 2 * MESH_CPU_POD_BATCH,
+                                              device="cpu")
+    small = next(cpu_data)
+    cmesh = make_test_mesh(multi_pod=True, devices=["cpu"] * 8)
+    got, want = {}, {}
+
+    def keep(store):
+        def probe(key, g, e, g_hat, new_e):
+            store[key] = ([x.float().cpu() for x in g],
+                          [y.float().cpu() for y in e], g_hat.cpu(),
+                          [z.cpu() for z in new_e])
+        return probe
+
+    outs = []
+    for where, mh, store in ((dev, mesh, got), ("cpu", cmesh, want)):
+        st = train_loop.make_train_step(loss_fn, ocfg, powersgd_axis="pod",
+                                        mesh=mh, powersgd_rank=MESH_RANK)
+        t0 = time.monotonic()
+        outs.append(st(to_device(params, where), to_device(state, where),
+                       {k: torch.from_numpy(v).to(where)
+                        for k, v in small.items()},
+                       trace={"leaf": keep(store)}))
+        cpu_s = time.monotonic() - t0
+    (gp, gst, gm), (cp, cst, cm) = outs
+    # Loss, parameters and each pod's gradients (the exchange's inputs)
+    # are held as train_phase holds the card to the CPU (TRAIN_TOL).  One
+    # power step makes the exchanged gradient depend on the span of P =
+    # M Q (M the pods' mean G + E): to first order a relative input change
+    # eps moves that span by eps ||Q|| sigma_1(M) / sigma_r(P) and g_hat
+    # by that times ||g_hat|| + ||M - g_hat||.  Each compressed leaf's
+    # g_hat and residuals are held to 10x that bound (Frobenius norms,
+    # over ||g_hat||), eps the pods' measured input change, at least the
+    # float32 unit.
+    torch.testing.assert_close(gm["loss"].cpu(), cm["loss"], **TRAIN_TOL)
+    for (path, a), (_, b) in zip(tree.leaves_with_path(gp),
+                                 tree.leaves_with_path(cp)):
+        if a.is_floating_point():
+            torch.testing.assert_close(a.cpu(), b, **TRAIN_TOL,
+                                       msg=lambda s: f"{path}: {s}")
+        elif not torch.equal(a.cpu(), b):
+            raise AssertionError(f"mesh card vs CPU: {path} differs")
+    worst = (0.0, "", 0.0, 0.0)
+    for key, (gs, es, gh, nes) in want.items():
+        cgs, _, cgh, cnes = got[key]
+        eps = 2.0 ** -24
+        for x, y, e in zip(cgs, gs, es):
+            torch.testing.assert_close(x, y, **TRAIN_TOL,
+                                       msg=lambda s: f"g {key}: {s}")
+            eps = max(eps, float((x - y).norm() / (y + e).norm()))
+        mbar = torch.stack([x + e for x, e in zip(gs, es)]).mean(0).double()
+        q = compression.draw_q(key, mbar.shape[1], min(MESH_RANK,
+                                                       *mbar.shape))
+        sv_p = torch.linalg.svdvals(mbar @ q.double())
+        amp = float(torch.linalg.matrix_norm(q.double(), 2)
+                    * torch.linalg.matrix_norm(mbar, 2) / sv_p[-1]) * float(
+            (gh.double().norm() + (mbar - gh.double()).norm())
+            / gh.double().norm())
+        moved = max([float((cgh - gh).norm())] + [
+            float((x - y).norm()) for x, y in zip(cnes, nes)]) / float(
+            gh.norm())
+        if moved > 10 * eps * amp:
+            raise AssertionError(f"mesh card vs CPU: {key} g_hat/residual "
+                                 f"{moved:.3e} past 10 x {eps:.3e} x {amp:.3e}")
+        if moved / (eps * amp) >= worst[0]:
+            worst = (moved / (eps * amp), key, moved, amp)
+    print(f"mesh sasrec card vs CPU (B={MESH_CPU_POD_BATCH} a pod, full "
+          f"width, from the trained per-pod state; the CPU step took "
+          f"{cpu_s:.1f}s on the host of {card}): loss abs err "
+          f"{abs(float(gm['loss']) - float(cm['loss'])):.3e}; parameters "
+          f"and each pod's gradients within rtol=atol=1e-5; {len(want)} "
+          f"compressed leaves' g_hat and residuals within 10x the first-"
+          f"order bound (nearest: {worst[1]}, deviation {worst[2]:.3e} of "
+          f"||g_hat||, amplification {worst[3]:.3e}, {worst[0]:.2f}x the "
+          f"bound's eps x amplification)")
+    del outs, gp, gst, cp, cst
+
+    # ---- 3. checkpoint, restore onto another mesh, one more step -------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        mgr = checkpoint.CheckpointManager(tmp, async_save=False)
+        mgr.save(MESH_STEPS, {"params": params, "opt_state": state})
+        mesh2 = ShardMesh([dev] * 8, ("pod", "data", "model"), (1, 4, 2))
+        shards = {"params": shd.param_shardings(mesh2, params,
+                                                shd.seqrec_param_rules()),
+                  "opt_state": shd.replicated(mesh2, state)}
+        got = mgr.restore(MESH_STEPS, {"params": params, "opt_state": state},
+                          shards)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_res = 0
+    for (path, a), (_, b) in zip(tree.leaves_with_path(state["ef"]),
+                                 tree.leaves_with_path(got["opt_state"]["ef"])):
+        host = a.host() if isinstance(a, Varying) else a
+        if not torch.equal(host, b) or b.sharding.mesh is not mesh2:
+            raise AssertionError(f"mesh restore: {path} is not pod 0's")
+        n_res += isinstance(a, Varying)
+    rstep = train_loop.make_train_step(
+        loss_fn, ocfg, powersgd_axis="pod", mesh=mesh2,
+        grad_shardings=shd.param_shardings(mesh2, got["params"],
+                                           shd.seqrec_param_rules()),
+        powersgd_rank=MESH_RANK)
+    rchecks = PodChecks("mesh restore")
+    (params, state, m), _, _ = marked_step(
+        rstep, [got["params"], got["opt_state"], batch()], leaf=rchecks)
+    if not np.isfinite(float(m["loss"])):
+        raise AssertionError("mesh restore: non-finite loss")
+    print(f"mesh restore: step {MESH_STEPS} saved from {dict(mesh.shape)}, "
+          f"restored with shardings onto {dict(mesh2.shape)} ({n_res} per-pod "
+          f"residuals on file as pod 0's, every restored one equal to it); "
+          f"one more step there, loss {float(m['loss']):.4f}; "
+          + rchecks.line())
+    del got, mgr
+
+    # ---- 4. the trained weights, served ---------------------------------
+    rng = np.random.default_rng(13)
+    seqs = [torch.from_numpy(rng.integers(
+        1, cfg.n_items + 1, (MAX_BATCH, cfg.max_seq_len)).astype(
+        np.int32)).to(dev) for _ in range(MESH_SERVE_BATCHES)]
+    launched = {}
+    with torch.inference_mode():
+        want = [seqrec.serve_topk(params, x, cfg, k=K, method="pqtopk")
+                for x in seqs]
+        for method, kern in (("pqtopk_fused", "pq_topk_fused"),
+                             ("pqtopk_kernel", "pq_scores")):
+            torch.cuda.synchronize()
+            reset_counts()
+            got = [seqrec.serve_topk(params, x, cfg, k=K, method=method)
+                   for x in seqs]
+            torch.cuda.synchronize()
+            counts = read_counts()
+            expect_counts(f"mesh serve {method}", counts,
+                          **{kern: MESH_SERVE_BATCHES})
+            launched[kern] = counts[kern]
+            for (gi, gv), (wi, wv) in zip(got, want):
+                if not (torch.equal(gi, wi) and torch.equal(gv, wv)):
+                    raise AssertionError(f"mesh-trained weights: {method} "
+                                         "differs from pqtopk")
+    reset_counts()
+    print(f"mesh serve: the mesh-trained weights, {MESH_SERVE_BATCHES} "
+          f"batches of {MAX_BATCH}, pqtopk_fused and pqtopk_kernel "
+          f"bit-identical to pqtopk; launches {launched}")
+    del params, state, seqs, want, got, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 5. qwen2.5-14b at full width, cut to 2 layers -------------------
+    full_arch, lcfg, lparams = lm_model(MESH_LM_ARCH, MESH_LM_LAYERS, dev)
+    lfull, lcomp = compression.exchanged_elements(lparams, MESH_RANK,
+                                                  MESH_MIN_SIZE)
+    tok = np.random.default_rng(17).integers(
+        0, lcfg.vocab, (2, MESH_LM_TOKENS + 1))
+    lbatch = {"tokens": torch.from_numpy(tok[:, :-1].astype(np.int32)).to(dev),
+              "targets": torch.from_numpy(tok[:, 1:].astype(np.int32)).to(dev)}
+    # One pod's body alone under the profiler first: where its time goes,
+    # and the step's warm-up (its first GEMMs and kernel loads).
+    t0 = time.monotonic()
+    profile_step(lambda: train_loop.value_and_grad(
+        lambda p, b: T.lm_loss(p, b, lcfg), lparams,
+        {k: v[:1] for k, v in lbatch.items()}), label=(
+            f"mesh lm profile (one pod body, forward+backward of "
+            f"{MESH_LM_TOKENS} tokens, the step's warm-up; {card})"))
+    print(f"mesh lm profile: {time.monotonic() - t0:.1f}s wall on {card}")
+    locfg = steps_lib._opt_cfg(lcfg)
+    lstep = train_loop.make_train_step(
+        lambda p, b: T.lm_loss(p, b, lcfg), locfg, powersgd_axis="pod",
+        mesh=mesh, powersgd_rank=MESH_RANK)
+    args = [lparams, train_loop.init_opt_state(lparams, locfg,
+                                               powersgd=True), lbatch]
+    del lparams, lbatch
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    lchecks = PodChecks("mesh lm")
+    plan = shd.strip_axis(shd.lm_activation_plan(mesh), "pod")
+    t0 = time.monotonic()
+    with shd.activation_plan(plan), shd.record_constraints() as rec:
+        (_, lstate, lm), split, wall = marked_step(lstep, args,
+                                                   leaf=lchecks)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(float(lm["loss"])):
+        raise AssertionError("mesh lm: non-finite loss")
+    stacked = [k for k, e in ((tree.path_str(p), e) for p, e in
+                              tree.leaves_with_path(lstate["ef"]))
+               if k.startswith("layers/") and isinstance(e, Varying)
+               and e.dim() == 3]
+    if not stacked:
+        raise AssertionError("mesh lm: no stacked leaf was compressed")
+    print(f"mesh lm {MESH_LM_ARCH}: full width cut to {MESH_LM_LAYERS} of "
+          f"{full_arch.model.n_layers} layers, one sequence of "
+          f"{MESH_LM_TOKENS} tokens a pod (batch 256 -> 2), mesh "
+          f"{dict(mesh.shape)}, {len(rec)} activation constraints; loss "
+          f"{float(lm['loss']):.4f}; {lchecks.line()}; stacked leaves "
+          f"compressed whole: {', '.join(stacked)}")
+    print(f"mesh lm step: {wall:.1f}ms wall; pod bodies {split['pods']:.1f}"
+          f"ms, exchange {split['exchange']:.1f}ms (with the per-leaf "
+          f"checks), AdamW {split['update']:.1f}ms; peak "
+          f"{(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB "
+          f"held (peak {peak / 2**30:.3f} GiB); compression_ratio "
+          f"{lcomp / lfull:.6f}, a pod exchange {lfull * 4} bytes full, {lcomp * 4} compressed; "
+          f"on {card}; {time.monotonic() - t0:.1f}s")
+    del lstate, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mesh phase: {time.monotonic() - t_phase:.1f}s on {card}")
+    return launched
+
+
 EB_SRC = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
 RECSYS_ARCHS = ("bst", "dcn-v2", "dien", "fm")
 
@@ -4216,6 +4643,11 @@ def main(argv=None) -> int:
             r["launches"] += dry[r["name"]]
             print(f"dryrun launches {r['name']}: +{dry[r['name']]}")
     analysis_phase(dev, params, cfg)
+    mesh = mesh_phase(dev)
+    for r in recs:      # the mesh-trained weights' serve launches join too
+        if r["name"] in mesh:
+            r["launches"] += mesh[r["name"]]
+            print(f"mesh launches {r['name']}: +{mesh[r['name']]}")
     bulk = bags["bst serve_bulk"]
     recs.append({
         "name": "embedding_bag", "route": "cuda", "source": EB_SRC,

@@ -1,34 +1,41 @@
-"""Item sharding on a shard mesh: the collectives of the sharded routes,
-per-shard row blocks, and the parameter sharding rules.
+"""Sharding on a mesh (``launch/mesh.py``): the collectives of the
+manual regions, per-shard row blocks, the parameter sharding rules and
+the activation plans.
 
-The reference's sharded routes run one ``shard_map`` whose bodies call
-``lax.all_gather``, ``pmax`` and ``psum``.  Here a body runs per shard on
-that shard's device (:func:`on_device`), and each collective is a plain
-function over the per-shard list that merges on the mesh's lead device,
-in shard order: :func:`all_gather` concatenates, :func:`pmax` and
-:func:`psum` stack and reduce, :func:`replicate` sends a lead tensor back
-to every shard's device.
+The reference's manual regions run one ``shard_map`` whose bodies call
+``lax.all_gather``, ``pmax`` and ``psum``.  Here a body runs per position
+on that position's device (:func:`on_device`, :func:`manual_axis_map`),
+and each collective is a plain function over the per-position list that
+merges on the mesh's lead device, in position order: :func:`all_gather`
+concatenates, :func:`pmax` and :func:`psum` stack and reduce,
+:func:`replicate` sends a lead tensor back to every device.  A value that
+a region returns unmerged is :class:`Varying`: one tensor per position,
+as the reference's ``check_vma=False`` outputs hold one buffer per device
+whatever their spec says.
 
 :func:`shard_rows` gives each shard its own contiguous block of a
 row-sharded tensor (the catalogue's codes, its ``live`` mask, a pruned
 state's tile metadata), padded with zero rows to ``S * n_local`` as the
 reference's ``jnp.pad`` does.
 
-The rules (:func:`seqrec_param_rules`, :func:`recsys_param_rules`) and
-:func:`param_shardings` are the reference's serve-path ones: a parameter
-tree maps to a tree of :class:`P` specs, an axis that does not divide its
-dimension dropped.  A spec names where a leaf would lie; placing a whole
-model by its specs is not ported (the sharded routes place what they
-shard).
+The rules (``*_param_rules``) and :func:`param_shardings` map a parameter
+tree to a tree of :class:`NamedSharding` (mesh and :class:`P` spec), an
+axis that does not divide its dimension dropped.  The activation plans
+name a spec per activation; inside :func:`activation_plan` the models'
+:func:`constrain` points look theirs up.  A spec says where a tensor would
+lie: the single controller keeps every tensor whole (GSPMD changes no
+values), so :func:`constrain` returns its input and records the point
+(:func:`record_constraints`), which is what a partitioned count reads.
 """
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import re
 import threading
 import weakref
-from typing import Any, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,10 +46,13 @@ AXIS = "model"
 
 class P(tuple):
     """A partition spec: per dimension, a mesh axis name (or a tuple of
-    names) or ``None`` (replicated)."""
+    names) or ``None`` (replicated).  As in JAX, a one-name tuple is that
+    name and an empty tuple is ``None``."""
 
     def __new__(cls, *entries):
-        return super().__new__(cls, entries)
+        return super().__new__(cls, (
+            (e[0] if len(e) == 1 else (e or None))
+            if isinstance(e, tuple) else e for e in entries))
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
@@ -71,9 +81,20 @@ def same_device(a: torch.device, b: torch.device) -> bool:
         (cur() if b.index is None else b.index)
 
 
-def replicate(x: torch.Tensor, mesh) -> List[torch.Tensor]:
-    """``x`` on every shard's device (no copy where it already lies)."""
-    return [x if same_device(x.device, d) else x.to(d) for d in mesh.devices]
+def to_device(x, dev: torch.device):
+    """A tensor on ``dev`` (itself where it already lies); anything else
+    as it is."""
+    if isinstance(x, torch.Tensor) and not same_device(x.device, dev):
+        return x.to(dev)
+    return x
+
+
+def replicate(x: torch.Tensor, mesh, axis: Optional[str] = None
+              ) -> List[torch.Tensor]:
+    """``x`` on every device of the mesh, or with ``axis`` on every
+    position's device of that axis (no copy where it already lies)."""
+    devs = mesh.devices if axis is None else mesh.axis_devices(axis)
+    return [to_device(x, d) for d in devs]
 
 
 def _gathered(parts: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
@@ -98,6 +119,12 @@ def psum(parts: Sequence[torch.Tensor], mesh) -> torch.Tensor:
     return torch.stack(_gathered(parts, mesh)).sum(dim=0)
 
 
+def pmean(parts: Sequence[torch.Tensor], mesh) -> torch.Tensor:
+    """Elementwise mean over the positions (``lax.pmean``: the sum over
+    the count), on the lead device."""
+    return psum(parts, mesh) / len(parts)
+
+
 def host_values(parts: Sequence[torch.Tensor], mesh, what: str,
                 largest: int) -> list:
     """Every shard's tensor read to the host in ONE read: stacked on the
@@ -110,6 +137,127 @@ def host_values(parts: Sequence[torch.Tensor], mesh, what: str,
     return cost.host_read(
         what, lambda: torch.stack(_gathered(parts, mesh)).tolist(),
         stand_in, of=parts)
+
+
+# ---------------------------------------------------------------------------
+# manual regions
+# ---------------------------------------------------------------------------
+
+
+class Varying:
+    """One value per position of a manual axis: what a region returns
+    under a spec that does not name the axis, unmerged.  The reference's
+    regions run with ``check_vma=False``, so such an output keeps each
+    device's own buffer although its spec says "replicated" (PowerSGD's
+    per-pod error feedback is one).  A host read (a checkpoint,
+    :meth:`host`) sees position 0's, as the reference's does."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts: Sequence[Any]):
+        self.parts = tuple(parts)
+
+    @property
+    def shape(self):
+        return self.parts[0].shape
+
+    def dim(self) -> int:
+        return self.parts[0].dim()
+
+    def host(self):
+        """Position 0's value."""
+        return self.parts[0]
+
+    def to(self, device) -> "Varying":
+        """Every position's value on ``device``."""
+        return Varying([p.to(device) for p in self.parts])
+
+    def __repr__(self) -> str:
+        return f"Varying({len(self.parts)} x {tuple(self.shape)})"
+
+
+def _spec_dim(spec, axis: str) -> Optional[int]:
+    """The dimension whose spec entry names ``axis`` (alone, or as the
+    major axis of a tuple), or None."""
+    for d, entry in enumerate(spec):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if axis in names:
+            if names[0] != axis:
+                raise NotImplementedError(
+                    f"spec {spec}: the manual axis {axis!r} must be the "
+                    "major axis of its dimension")
+            return d
+    return None
+
+
+def _tree_map(fn, tree, *rest):
+    from repro_torch.training import tree as tree_lib
+    return tree_lib.tree_map(fn, tree, *rest)
+
+
+def _block(x, dim: Optional[int], i: int, n: int, dev: torch.device):
+    if isinstance(x, Varying):
+        return to_device(x.parts[i], dev)
+    if dim is not None and isinstance(x, torch.Tensor):
+        size = x.shape[dim]
+        if size % n:
+            raise ValueError(f"dimension {dim} of size {size} does not "
+                             f"divide into {n} positions")
+        x = x.narrow(dim, i * (size // n), size // n)
+    return to_device(x, dev)
+
+
+def manual_axis_map(fn: Callable, mesh, in_specs, out_specs, *,
+                    axis_names=None) -> Callable:
+    """The repo's manual region (the reference's ``shard_map`` with
+    ``axis_names``): ``fn`` runs once per position of the manual axis, in
+    turn, under that position's device (:meth:`ShardMesh.axis_devices`).
+
+    ``in_specs`` has one :class:`P` per argument, applied to every leaf of
+    it: a leaf whose spec names the axis gets its position's contiguous
+    block of that dimension, a :class:`Varying` leaf its position's value,
+    any other leaf the whole.  ``out_specs`` (one :class:`P`, or one per
+    output of a tuple): an output whose spec names the axis is gathered
+    along that dimension on the lead device; any other output comes back
+    as a tree of :class:`Varying` leaves (the reference's
+    ``check_vma=False``).  The other axes are automatic: the body sees
+    whole tensors, as GSPMD changes no values.  Collectives are not called
+    inside ``fn``; they merge the region's outputs afterwards."""
+    names = tuple(axis_names) if axis_names is not None else \
+        tuple(mesh.axis_names)
+    if len(names) != 1:
+        raise NotImplementedError(
+            f"manual regions over one axis only, not {names}")
+    axis = names[0]
+    devs = mesh.axis_devices(axis)
+    n = len(devs)
+    single = isinstance(out_specs, P)
+
+    def mapped(*args):
+        if len(args) != len(in_specs):
+            raise TypeError(f"{len(args)} arguments for {len(in_specs)} "
+                            "in_specs")
+        outs = []
+        for i, dev in enumerate(devs):
+            local = [_tree_map(lambda x, d=_spec_dim(spec, axis):
+                               _block(x, d, i, n, dev), a)
+                     for a, spec in zip(args, in_specs)]
+            with on_device(dev):
+                out = fn(*local)
+            outs.append((out,) if single else tuple(out))
+        specs = (out_specs,) if single else tuple(out_specs)
+        merged = []
+        for j, spec in enumerate(specs):
+            parts = [o[j] for o in outs]
+            d = _spec_dim(spec, axis)
+            if d is not None:
+                merged.append(_tree_map(
+                    lambda *xs, d=d: all_gather(xs, mesh, dim=d), *parts))
+            else:
+                merged.append(_tree_map(lambda *xs: Varying(xs), *parts))
+        return merged[0] if single else tuple(merged)
+
+    return mapped
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +329,180 @@ def shard_rows(x: torch.Tensor, mesh) -> List[torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
+# shardings, activation plans and constraints
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec bound to a mesh (the reference's ``NamedSharding``)."""
+
+    mesh: Any
+    spec: P
+
+
+_PLAN: contextvars.ContextVar[Optional["ShardingPlan"]] = \
+    contextvars.ContextVar("activation_plan", default=None)
+_RECORD: contextvars.ContextVar[Optional[list]] = \
+    contextvars.ContextVar("constraint_record", default=None)
+
+
+class ShardingPlan:
+    """Named activation specs bound to a mesh."""
+
+    def __init__(self, mesh, specs: Dict[str, P]):
+        self.mesh = mesh
+        self.specs = dict(specs)
+
+    def sharding(self, name: str) -> Optional[NamedSharding]:
+        spec = self.specs.get(name)
+        if spec is None:
+            return None
+        return NamedSharding(self.mesh, spec)
+
+
+@contextlib.contextmanager
+def activation_plan(plan: Optional[ShardingPlan]):
+    tok = _PLAN.set(plan)
+    try:
+        yield plan
+    finally:
+        _PLAN.reset(tok)
+
+
+def current_plan() -> Optional[ShardingPlan]:
+    return _PLAN.get()
+
+
+def strip_axis(plan: ShardingPlan, axis: str) -> ShardingPlan:
+    """Plan view with ``axis`` removed from every spec -- used inside
+    regions that are manual over that axis (PowerSGD's pod exchange)."""
+    def fix(spec: P) -> P:      # P makes a 1-tuple its name, () None
+        return P(*(tuple(a for a in e if a != axis) if isinstance(e, tuple)
+                   else None if e == axis else e for e in spec))
+    return ShardingPlan(plan.mesh, {k: fix(v) for k, v in plan.specs.items()})
+
+
+@contextlib.contextmanager
+def record_constraints():
+    """Collects ``(name, spec, shape)`` for every constraint applied inside
+    the block, in order (:func:`constrain` points by their activation
+    name; :func:`with_sharding_constraint` by the name it is given)."""
+    rec: List[Tuple[Optional[str], P, Tuple[int, ...]]] = []
+    tok = _RECORD.set(rec)
+    try:
+        yield rec
+    finally:
+        _RECORD.reset(tok)
+
+
+def with_sharding_constraint(x: torch.Tensor, sharding: NamedSharding,
+                             name: Optional[str] = None) -> torch.Tensor:
+    """``x`` itself, its values unchanged: the single controller keeps
+    every tensor whole.  The spec must fit ``x`` and name axes of its
+    mesh; the point is recorded (:func:`record_constraints`)."""
+    spec = sharding.spec
+    if len(spec) > x.dim():
+        raise ValueError(f"spec {spec} too long for a {x.dim()}-D tensor")
+    for entry in spec:
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a is not None and a not in sharding.mesh.shape:
+                raise ValueError(f"spec {spec} names {a!r}, not an axis of "
+                                 f"the mesh {sharding.mesh.axis_names}")
+    rec = _RECORD.get()
+    if rec is not None:
+        rec.append((name, spec, tuple(x.shape)))
+    return x
+
+
+def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The named activation constraint if a plan is active (a spec longer
+    than ``x``'s rank is skipped, as in the reference); ``x`` itself
+    either way."""
+    plan = _PLAN.get()
+    if plan is None:
+        return x
+    sh = plan.sharding(name)
+    if sh is None or len(sh.spec) > x.dim():
+        return x
+    return with_sharding_constraint(x, sh, name)
+
+
+def device_put(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """``x`` placed by ``sharding`` on its mesh: the whole tensor on the
+    lead device, carrying ``.sharding`` as the reference's placed array
+    does (a new tensor object; ``x`` is not tagged)."""
+    with_sharding_constraint(x, sharding)
+    out = to_device(x, sharding.mesh.lead)
+    if out is x:
+        out = x.view_as(x)
+    out.sharding = sharding
+    return out
+
+
+# ---------------------------------------------------------------------------
+# standard activation plans
+# ---------------------------------------------------------------------------
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def lm_activation_plan(mesh, *, shard_seq: bool = True,
+                       tp_internal: bool = False,
+                       vocab_tp: bool = False) -> ShardingPlan:
+    """``tp_internal`` = Megatron-style sequence-parallel TP: the residual
+    stream stays seq-sharded over 'model', while the d_ff intermediate and
+    the query heads inside each layer are model-sharded."""
+    b = batch_axes(mesh)
+    seq = "model" if shard_seq else None
+    # Logits: seq kept model-sharded through the head when it is; with seq
+    # unsharded, the vocab dimension is sharded instead (classic TP head).
+    logits = P(b, seq, None) if (shard_seq and not vocab_tp) \
+        else P(b, None, "model")
+    extra = {}
+    if tp_internal:
+        extra = {
+            "mlp_hidden": P(b, None, "model"),
+            "attn_q_heads": P(b, None, "model", None),
+        }
+    return ShardingPlan(mesh, {
+        "tokens": P(b, None),
+        "hidden": P(b, seq, None),
+        "logits": logits,
+        **extra,
+        "phi": P(b, None),                    # (B, d) decode hidden
+        "kv_cache": P(b, "model", None, None),
+        "kv_cache_batch1": P(None, ("data", "model"), None, None),
+        "moe_group": P(b, seq, None, None),
+        "scores": P(b, "model"),              # (B, N) item scores
+    })
+
+
+def recsys_activation_plan(mesh) -> ShardingPlan:
+    b = batch_axes(mesh)
+    return ShardingPlan(mesh, {
+        "batch": P(b),
+        "dense_feats": P(b, None),
+        "sparse_ids": P(b, None),
+        "hidden": P(b, None),
+        "seq_hidden": P(b, None, None),
+        "scores": P(b, "model"),
+    })
+
+
+def gnn_activation_plan(mesh) -> ShardingPlan:
+    all_axes = tuple(mesh.axis_names)
+    return ShardingPlan(mesh, {
+        "edges": P(all_axes),                 # edge lists over all devices
+        "edge_feats": P(all_axes, None),
+        "node_feats": P(None, None),          # replicated
+        "batch_nodes": P(batch_axes(mesh)),
+    })
+
+
+# ---------------------------------------------------------------------------
 # parameter sharding rules (path pattern -> P)
 # ---------------------------------------------------------------------------
 
@@ -198,6 +520,32 @@ def path_str(path) -> str:
     """A tree path (dict keys, list indices, dataclass field names) as the
     reference's ``"a/b/0"`` string."""
     return "/".join(str(p) for p in path)
+
+
+def lm_param_rules(scan_layers: bool = True):
+    """Stacked layer params have a leading L dim (unsharded).  2-D weight
+    matrices: FSDP dim over 'data', TP dim over 'model'; experts over
+    'model' (EP); embedding/vocab over 'model'."""
+    l = (None,) if scan_layers else ()
+    return [
+        # MoE experts: (L, E, d, f) -- E over model, d over data.
+        (r"layers/.*moe/(up|gate)$", P(*l, "model", "data", None)),
+        (r"layers/.*moe/down$",      P(*l, "model", None, "data")),
+        (r"layers/.*moe/router/w$",  P(*l, None, "model")),
+        (r"layers/.*moe/shared/.*/w$", P(*l, "data", "model")),
+        # Attention + dense MLP 2-D mats: (L, d_in, d_out).
+        (r"layers/.*(wq|wk|wv|up|gate)/w$", P(*l, "data", "model")),
+        (r"layers/.*(wo|down)/w$",          P(*l, "model", "data")),
+        (r"layers/.*/b$", P(*l, "model")),
+        (r"layers/.*(scale|bias)$", P(*l, None)),
+        # Embedding + unembedding: vocab over model, d over data.
+        (r"(embed|head)/table$", P("model", "data")),
+        (r"head/w$", P("data", "model")),
+        # PQ head: codes over model (items), sub-embeddings replicated.
+        (r"pq_head/codes$", P("model", None)),
+        (r"pq_head/sub_emb$", P()),
+        (r".*", P()),
+    ]
 
 
 def seqrec_param_rules():
@@ -221,6 +569,10 @@ def recsys_param_rules():
     ]
 
 
+def gnn_param_rules():
+    return [(r".*", P())]        # GraphSAGE params are tiny: replicate
+
+
 def _axis_size(mesh, ax) -> int:
     size = 1
     for a in (ax if isinstance(ax, tuple) else (ax,)):
@@ -228,26 +580,37 @@ def _axis_size(mesh, ax) -> int:
     return size
 
 
+def _map_leaves(fn, tree, path=()):
+    """``fn(path, leaf)`` over a parameter tree (dicts, lists, tuples and
+    dataclasses such as the pruned states, whose tensor fields are its
+    leaves), keeping its structure; ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _map_leaves(fn, getattr(tree, f.name), path + (f.name,))
+            for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)})
+    return fn(path, tree)
+
+
 def param_shardings(mesh, params: Any, rules) -> Any:
-    """A parameter tree (dicts, lists, pruned states) -> the same tree of
-    :class:`P` specs.  An axis that does not divide its dimension is
+    """A parameter tree (of tensors, real or on meta) -> the same tree of
+    :class:`NamedSharding`.  An axis that does not divide its dimension is
     dropped (that dimension replicated), as in the reference."""
 
     def leaf(path, x):
         spec = _match(rules, path_str(path), x.dim())
-        return P(*(None if ax is None or x.shape[d] % _axis_size(mesh, ax)
-                   else ax for d, ax in enumerate(spec)))
+        return NamedSharding(mesh, P(*(
+            None if ax is None or x.shape[d] % _axis_size(mesh, ax) else ax
+            for d, ax in enumerate(spec))))
 
-    def walk(path, tree):
-        if isinstance(tree, dict):
-            return {k: walk(path + [k], v) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return [walk(path + [i], v) for i, v in enumerate(tree)]
-        if dataclasses.is_dataclass(tree):
-            return dataclasses.replace(tree, **{
-                f.name: walk(path + [f.name], getattr(tree, f.name))
-                for f in dataclasses.fields(tree)
-                if isinstance(getattr(tree, f.name), torch.Tensor)})
-        return leaf(path, tree)
+    return _map_leaves(leaf, params)
 
-    return walk([], params)
+
+def replicated(mesh, tree: Any) -> Any:
+    return _map_leaves(lambda _, __: NamedSharding(mesh, P()), tree)

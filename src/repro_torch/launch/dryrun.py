@@ -26,7 +26,8 @@ and outputs, so every copy the port's op sequence makes, needed or not),
 and ``min_memory_s``, the step's arguments read once and its fresh
 outputs written once, which no op sequence changes.  ``bound_s`` takes
 the first and ``min_bound_s`` the second.  Collectives
-wait for the multi-axis mesh (ROADMAP A 6b): ``collective_s`` is 0.  A host
+wait for the dry run over the multi-axis mesh (ROADMAP A 6c):
+``collective_s`` is 0.  A host
 read of a meta tensor (the pruned cascade's survivor counts, ROADMAP D1)
 takes the largest value the shapes allow, and the artifact says
 ``"rung": "max"``.
@@ -63,8 +64,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 HBM_BW = cost.HBM_BYTES_PER_S
 CARD_HBM_BYTES = 80e9               # the data sheet's 80 GB
 DEFAULT_OUT = "artifacts/dryrun_torch"
-COLLECTIVES_NOTE = ("collectives wait for the multi-axis mesh "
-                    "(ROADMAP A 6b)")
+COLLECTIVES_NOTE = ("collectives wait for the dry run over the multi-axis "
+                    "mesh (ROADMAP A 6c)")
 
 
 def _flat_tensors(seq) -> list:
@@ -255,8 +256,9 @@ def extrapolate_lm(arch_id: str, shape_name: str, device="meta",
 def _check_mesh(mesh_kind: str) -> None:
     if mesh_kind != "card":
         raise NotImplementedError(
-            f"mesh {mesh_kind!r}: the production meshes are not ported yet "
-            "(ROADMAP A 6b); the port's dry run runs on one card ('card')")
+            f"mesh {mesh_kind!r}: the dry run over the production meshes is "
+            "not ported yet (ROADMAP A 6c); the port's dry run runs on one "
+            "card ('card')")
 
 
 def run_cell(arch_id: str, shape_name: str, mesh_kind: str = "card",
@@ -385,7 +387,7 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--shape", action="append", default=None)
     ap.add_argument("--mesh", default="card",
                     help="only 'card'; 'single' and 'multi' wait for "
-                         "ROADMAP A 6b")
+                         "ROADMAP A 6c")
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--save-hlo", action="store_true",

@@ -6,7 +6,7 @@ computed yet.
   args           -- its arguments: on ``"meta"`` (the default) shapes and
                     dtypes only, as the reference's ``ShapeDtypeStruct``s
   in_shardings   -- one ``torch.device`` per argument (one device until the
-                    multi-axis mesh, ROADMAP A 6b)
+                    dry run over the multi-axis mesh, ROADMAP A 6c)
   donate         -- argnums the step may overwrite (the reference's)
   plan           -- ``None``: no activation plan on one device
   meta           -- the reference's ``meta``, key for key
@@ -15,7 +15,7 @@ The reference's ``launch/steps.py``, branch for branch, on one device.
 Argument dtypes are the reference's (int32 tokens, ids and edges; a step
 widens what a torch op needs as int64 inside).  Variants that change the
 computation on one device are built; those that change only shardings
-or need a mesh axis raise ``NotImplementedError`` naming A 6b.
+or need a mesh axis raise ``NotImplementedError`` naming A 6c.
 :func:`materialize` gives a bundle's arguments values on a device, drawn
 from a seed (codes below ``b``, ids below their table's rows, the pruning
 metadata built from the drawn codes, optimizer state zero).
@@ -32,7 +32,7 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec, get_config
 from repro_torch.training import optimizer as opt_lib, train_loop
 from repro_torch.training import tree as tree_lib
 
-#: Variants that shard (or need a mesh axis) and so wait for ROADMAP A 6b.
+#: Variants that shard (or need a mesh axis) and so wait for ROADMAP A 6c.
 MESH_VARIANTS = ("noseq", "seqpar_tp", "moe_sort_vocab_tp", "powersgd")
 MESH_PREFIXES = ("vocab_tp", "sharded_")
 MESH_SUFFIXES = ("gradrs", "_bm")
@@ -65,7 +65,8 @@ def check_variant(variant: str) -> None:
             or variant.endswith(MESH_SUFFIXES)):
         raise NotImplementedError(
             f"variant {variant!r} changes shardings or needs a mesh axis: "
-            "the multi-axis mesh is not ported yet (ROADMAP A 6b)")
+            "its dry run over the multi-axis mesh is not ported yet "
+            "(ROADMAP A 6c)")
 
 
 def _bundle(arch, shape, step_fn, args, donate, meta) -> StepBundle:

@@ -130,12 +130,17 @@ def full_attention(p: Params, cfg: AttentionConfig, x: torch.Tensor, *,
                    kv_chunk: int = DEFAULT_KV_CHUNK) -> torch.Tensor:
     """Self-attention over a full sequence (train / prefill); a local layer
     (``is_global=False``) attends over the config's sliding window."""
+    from repro_torch.distributed.sharding import constrain
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
+    # TP hook: query heads over 'model' (Megatron-SP plans set
+    # "attn_q_heads").
+    q = constrain(q, "attn_q_heads")
     out = chunked_attention(q, k, v, causal=causal,
                             window=0 if is_global else cfg.window,
                             kv_chunk=kv_chunk)
+    out = constrain(out, "attn_q_heads")
     return layers.dense(p["wo"], out.reshape(b, s, -1))
 
 

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import GNNConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.interop import to_device
 from repro_torch.models import layers
 from repro_torch.training import tree as tree_lib
@@ -88,7 +89,8 @@ def _aggregate(h: torch.Tensor, edges: torch.Tensor, n_nodes: int,
                aggregator: str) -> torch.Tensor:
     """Mean (or sum) of the neighbours' features: h[src] added into dst."""
     src, dst = edges[:, 0], edges[:, 1]
-    agg = _segment_sum(h[src], dst, n_nodes)
+    msgs = constrain(h[src], "edge_feats")
+    agg = _segment_sum(msgs, dst, n_nodes)
     if aggregator == "mean":
         deg = _segment_sum(torch.ones_like(dst, dtype=h.dtype), dst, n_nodes)
         agg = agg / deg.clamp_min(1.0)[:, None]

@@ -129,7 +129,10 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, *,
 
 
 def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    from repro_torch.distributed.sharding import constrain
     f = activation(act)
     h = dense(p["up"], x)
     h = f(dense(p["gate"], x)) * h if "gate" in p else f(h)
+    # TP hook: the d_ff intermediate (Megatron-SP plans set "mlp_hidden").
+    h = constrain(h, "mlp_hidden")
     return dense(p["down"], h)

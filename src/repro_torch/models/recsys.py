@@ -4,8 +4,8 @@ reference's ``models/recsys.py``: the click loss and the serving paths.
 All four share the embedding substrate (:mod:`.embedding`) and a PQ item
 catalogue for the ``retrieval_cand`` path, where the user-side query is
 scored against the catalogue with PQTopK (:func:`retrieve_topk`).  The
-reference's sharding constraints are no-ops without a mesh and are left
-out; its abstract (shape-only) init belongs to the dry run.
+reference's sharding constraints sit at the same points
+(:func:`~repro_torch.distributed.sharding.constrain`: values unchanged).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import AttentionConfig, RecsysConfig
 from repro_torch.core import retrieval_head
+from repro_torch.distributed.sharding import constrain
 from repro_torch.interop import to_device
 from repro_torch.models import attention as attn_lib, embedding, layers
 from repro_torch.training import tree as tree_lib
@@ -175,7 +176,7 @@ def ctr_logits(params: Params, batch: Dict[str, torch.Tensor],
                cfg: RecsysConfig) -> torch.Tensor:
     """Pointwise (user, item) scoring -> logit (B,)."""
     if cfg.kind == "dcn":
-        x0 = _dcn_x0(params, batch)
+        x0 = constrain(_dcn_x0(params, batch), "hidden")
         x = x0
         for cp in params["cross"]:
             x = x0 * layers.dense(cp, x) + x      # DCN-v2 cross layer
@@ -263,7 +264,7 @@ def retrieve_topk(params: Params, batch: Dict[str, torch.Tensor],
                   cfg: RecsysConfig, *, k: int = 10, method: str = "pqtopk"):
     """retrieval_cand path: PQTopK over the n_items catalogue.  Returns
     ``(ids, vals)``, the reverse of ``retrieval_head.top_items``."""
-    vals, ids = retrieval_head.top_items(params["item_emb"],
-                                         user_query(params, batch, cfg), k,
+    phi = constrain(user_query(params, batch, cfg), "hidden")
+    vals, ids = retrieval_head.top_items(params["item_emb"], phi, k,
                                          method=method)
     return ids, vals

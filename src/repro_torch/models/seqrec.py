@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import AttentionConfig, SeqRecConfig
 from repro_torch.core import retrieval_head
+from repro_torch.distributed.sharding import constrain
 from repro_torch.interop import to_device
 from repro_torch.models import attention as attn_lib, layers
 from repro_torch.training import tree as tree_lib
@@ -87,6 +88,7 @@ def seqrec_hidden(params: Params, item_seq: torch.Tensor, cfg: SeqRecConfig,
     s = item_seq.shape[1]
     x = _embed_seq(params, item_seq)
     x = x + params["pos_emb"]["table"][None, :s].to(x.dtype)
+    x = constrain(x, "seq_hidden")
     return _encode(params, x, cfg, causal=cfg.backbone == "sasrec")
 
 
@@ -160,7 +162,7 @@ def serve_topk(params: Params, item_seq: torch.Tensor, cfg: SeqRecConfig, *,
     if pin_rung and sharded_mesh is not None:
         raise ValueError("pin_rung is not threaded through the sharded "
                          "cascade; degrade the flat replicas instead")
-    phi = sequence_embedding(params, item_seq, cfg)
+    phi = constrain(sequence_embedding(params, item_seq, cfg), "phi")
     if sharded_mesh is not None:
         if method == "pqtopk_pruned" and return_rung:
             vals, ids, stats = retrieval_head.top_items_pruned_sharded(

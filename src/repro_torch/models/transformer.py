@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.core import retrieval_head, topk as topk_lib
+from repro_torch.distributed.sharding import constrain
 from repro_torch.interop import to_device
 from repro_torch.models import attention, layers, moe as moe_lib
 from repro_torch.training import tree as tree_lib
@@ -174,7 +175,7 @@ def _block_fwd(blk: Params, cfg: LMConfig, x: torch.Tensor,
                                  is_global=is_global, causal=cfg.causal)
     x = x + h
     h, aux = _ffn(blk, cfg, layers.apply_norm(blk["ln2"], x, cfg.norm))
-    return x + h, aux
+    return constrain(x + h, "hidden"), aux
 
 
 def lm_hidden(params: Params, tokens: torch.Tensor, cfg: LMConfig
@@ -182,7 +183,8 @@ def lm_hidden(params: Params, tokens: torch.Tensor, cfg: LMConfig
     """tokens (B, S) -> (hidden (B, S, d), aux_loss summed over the
     layers).  With ``cfg.remat`` each layer's activations are recomputed
     in backward (``torch.utils.checkpoint``), which moves no number."""
-    x = params["embed"]["table"][tokens].to(_dtype(cfg.dtype))
+    x = constrain(params["embed"]["table"][tokens].to(_dtype(cfg.dtype)),
+                  "hidden")
     flags = layer_types(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -202,8 +204,10 @@ def unembed(params: Params, hidden: torch.Tensor, cfg: LMConfig
             ) -> torch.Tensor:
     if cfg.tie_embeddings:
         w = params["embed"]["table"].to(hidden.dtype)          # (V, d)
-        return hidden @ w.T
-    return layers.dense(params["head"], hidden)
+        logits = hidden @ w.T
+    else:
+        logits = layers.dense(params["head"], hidden)
+    return constrain(logits, "logits")
 
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig
@@ -268,7 +272,7 @@ def _decode_backbone(params: Params, token: torch.Tensor, pos, caches,
         x = x + h
         x = x + _ffn(blk, cfg, layers.apply_norm(blk["ln2"], x, cfg.norm))[0]
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
-    return x[:, 0, :].float()
+    return constrain(x[:, 0, :].float(), "phi")
 
 
 def _decode_head(params: Params, phi: torch.Tensor, cfg: LMConfig, k: int,
@@ -279,14 +283,14 @@ def _decode_head(params: Params, phi: torch.Tensor, cfg: LMConfig, k: int,
     if head_method == "dense":
         w = (params["embed"]["table"] if cfg.tie_embeddings
              else params["head"]["w"].T)                        # (V, d)
-        vals, ids = topk_lib.topk(phi @ w.float().T, k)
+        vals, ids = topk_lib.topk(constrain(phi @ w.float().T, "scores"), k)
     elif head_method in TOP_ITEMS_HEADS:
         vals, ids = retrieval_head.top_items(params["pq_head"], phi, k,
                                              method=head_method,
                                              pq_cfg=cfg.pq_head)
     else:
-        vals, ids = topk_lib.topk(
-            retrieval_head.score_all(params["pq_head"], phi, head_method), k)
+        scores = retrieval_head.score_all(params["pq_head"], phi, head_method)
+        vals, ids = topk_lib.topk(constrain(scores, "scores"), k)
     return ids, vals
 
 

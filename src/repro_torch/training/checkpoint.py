@@ -24,6 +24,10 @@ every leaf to host numpy on the caller's thread (a CUDA tensor's copy
 waits for the work that produces it), so the writer thread touches its
 own numpy copies only.  Every npz's CRC32 is checked before numpy parses it;
 :meth:`CheckpointManager.restore_latest` falls back past corrupt steps.
+
+A leaf kept per pod (PowerSGD's error feedback, a ``Varying``) is written
+as pod 0's value, which is what the reference's host read of its
+per-device buffers sees; restored, it is one tensor that every pod takes.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.pruning import UINT32_FIELDS
+from repro_torch.distributed.sharding import Varying, device_put
 from repro_torch.training import tree as tree_lib
 
 Flat = Dict[str, np.ndarray]
@@ -71,7 +76,10 @@ def _key(path) -> str:
 def _to_host(leaf, presence: bool = False) -> np.ndarray:
     """A copy of ``leaf`` in host memory (a copy even of a CPU tensor or
     array, so the caller may change it while a writer thread runs); int32
-    presence words (``presence``) as the reference's uint32."""
+    presence words (``presence``) as the reference's uint32; a per-pod
+    leaf as pod 0's value."""
+    if isinstance(leaf, Varying):
+        leaf = leaf.host()
     if not isinstance(leaf, torch.Tensor):
         return np.array(leaf)
     t = leaf.detach().to("cpu", copy=True)
@@ -104,6 +112,18 @@ def _from_host(arr: np.ndarray, template) -> Any:
         arr = arr.view(np.int32)
     want = torch.empty((), dtype=template.dtype).numpy().dtype
     return torch.from_numpy(np.array(arr, want)).to(template.device)
+
+
+def _stored(arr: np.ndarray, presence: bool) -> torch.Tensor:
+    """A stored array as a tensor of its own dtype (the reference's
+    ``device_put`` keeps it): ``bfloat16`` from its 2-byte void, uint32
+    presence words as the port's int32 with the same bits."""
+    if arr.dtype == _BF16:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(
+            np.int16)).view(torch.bfloat16)
+    if presence and arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    return torch.from_numpy(np.array(arr))
 
 
 class CheckpointManager:
@@ -226,7 +246,6 @@ class CheckpointManager:
         """The newest step that passes validation, falling back past
         corrupt ones -> ``(step, trees)``; raises
         :class:`CorruptCheckpointError` when none does."""
-        _no_shardings(shardings)
         steps = self.all_steps()
         skipped = []
         for step in reversed(steps):
@@ -234,7 +253,7 @@ class CheckpointManager:
                 skipped.append(step)
                 continue
             try:
-                return step, self.restore(step, templates)
+                return step, self.restore(step, templates, shardings)
             except CorruptCheckpointError:
                 skipped.append(step)   # raced a concurrent writer or GC
         raise CorruptCheckpointError(
@@ -246,8 +265,14 @@ class CheckpointManager:
         """The trees named by ``templates`` (trees of tensors or numpy
         arrays giving the structure): each stored leaf must have its
         template's shape, and comes back as its template's type (a tensor
-        of its dtype on its device, or a numpy array of its dtype)."""
-        _no_shardings(shardings)
+        of its dtype on its device, or a numpy array of its dtype).
+
+        ``shardings`` (optional; per name, a tree of ``NamedSharding`` of
+        the template's structure) places every leaf on the *current* mesh
+        instead -- the elastic path: the stored whole arrays do not care
+        how many devices wrote them or will read them.  Such a leaf keeps
+        the file's dtype, as the reference's ``device_put`` does, and
+        carries its ``.sharding``."""
         base = self._step_dir(step)
         try:
             with open(os.path.join(base, "manifest.json")) as f:
@@ -270,21 +295,22 @@ class CheckpointManager:
                 raise CorruptCheckpointError(
                     f"step {step}: unreadable {name}.npz ({e})") from e
 
-            def leaf(path, tmpl, flat=flat):
+            def leaf(path, tmpl, sh=None, flat=flat):
                 key = _key(path)
                 arr = flat[key]
+                if isinstance(tmpl, Varying):
+                    tmpl = tmpl.host()
                 if tuple(arr.shape) != tuple(np.shape(tmpl)):
                     raise ValueError(
                         f"checkpoint leaf {key}: shape {arr.shape} != "
                         f"template {tuple(np.shape(tmpl))}")
+                if sh is not None:
+                    return device_put(_stored(arr, bool(path) and path[-1]
+                                              in UINT32_FIELDS), sh)
                 return _from_host(arr, tmpl)
 
-            out[name] = tree_lib.map_with_path(leaf, template)
+            shard_tree = shardings.get(name) if shardings else None
+            out[name] = (tree_lib.map_with_path(leaf, template)
+                         if shard_tree is None else
+                         tree_lib.map_with_path(leaf, template, shard_tree))
         return out
-
-
-def _no_shardings(shardings) -> None:
-    if shardings is not None:
-        raise NotImplementedError(
-            "elastic restore onto shardings is training over a mesh, not "
-            "ported yet (ROADMAP A 6b)")

@@ -116,12 +116,27 @@ def adamw_update(grads: Params, state: Dict[str, Any], params: Params,
         if not p.is_floating_point() or (
                 frozen is not None and frozen(tree_lib.path_str(path))):
             return p, m, v
+        # The reference's arithmetic op for op, each temporary updated in
+        # place once made (at a vocabulary-sized leaf every float32 copy
+        # is gigabytes); p - u is computed as -u + p, the same float.
         g32 = g.float()
-        m32 = m.float() * b1 + g32 * (1 - b1)
-        v32 = v.float() * b2 + g32.square() * (1 - b2)
-        upd = (m32 / bc1) / ((v32 / bc2).sqrt() + cfg.eps)
-        upd = upd + cfg.weight_decay * p.float()
-        new_p = (p.float() - lr * upd).to(p.dtype)
+        m32 = m.float() * b1
+        m32 += g32 * (1 - b1)
+        t = g32.square()
+        del g32
+        t *= 1 - b2
+        v32 = v.float() * b2
+        v32 += t
+        del t
+        upd = m32 / bc1
+        den = v32 / bc2
+        den.sqrt_()
+        den += cfg.eps
+        upd /= den
+        del den
+        upd += cfg.weight_decay * p.float()
+        upd *= lr
+        new_p = upd.neg_().add_(p.float()).to(p.dtype)
         return new_p, m32.to(mdt), v32.to(mdt)
 
     new_params, new_m, new_v = tree_lib.unzip(tree_lib.map_with_path(

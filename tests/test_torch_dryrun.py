@@ -344,7 +344,7 @@ def test_run_cell_records_a_failure(tmp_path):
     res = dryrun.run_cell("qwen2.5-14b", "train_4k", "card", "noseq",
                           str(tmp_path), verbose=False)
     assert res["ok"] is False
-    assert "A 6b" in res["error"] and "traceback" in res
+    assert "A 6c" in res["error"] and "traceback" in res
     assert json.loads((tmp_path / "qwen2.5-14b__train_4k__card__noseq.json"
                        ).read_text())["ok"] is False
 
@@ -360,11 +360,11 @@ def test_main_runs_then_skips_a_cached_cell(tmp_path, capsys):
 
 def test_meshes_and_mesh_variants_raise_naming_a6b(tmp_path):
     for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="A 6b"):
+        with pytest.raises(NotImplementedError, match="A 6c"):
             list(dryrun.iter_cells(meshes=(mesh,)))
-        with pytest.raises(NotImplementedError, match="A 6b"):
+        with pytest.raises(NotImplementedError, match="A 6c"):
             dryrun.main(["--mesh", mesh, "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A 6b"):
+    with pytest.raises(NotImplementedError, match="A 6c"):
         dryrun.main(["--variant", "vocab_tp", "--out", str(tmp_path)])
     with pytest.raises(SystemExit):
         dryrun.main(["--save-hlo", "--out", str(tmp_path)])

@@ -842,3 +842,66 @@ def test_analysis_registry_on_the_card(cuda_device):
             == ep.DOCUMENTED[name][0], (name, info)
         assert info["host_reads"] == ep.DOCUMENTED[name][1], (name, info)
         assert info["cuda_uploads"] == ep.DOCUMENTED[name][2], (name, info)
+
+
+def test_powersgd_mesh_step_on_the_card_matches_the_cpu(cuda_device):
+    """Two PowerSGD steps of a widened reduced SASRec-RecJPQ on the 8
+    positions of ``make_test_mesh(multi_pod=True)`` on ``cuda:0`` against
+    the same steps on CPU positions (the second with each pod's own
+    residual): loss, every pod's residual and every parameter within
+    rtol=atol=1e-5, and on the card each compressed leaf's error-feedback
+    identity g_hat + e' == g + e per pod within 1e-5 of its largest
+    value."""
+    import dataclasses
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.data.sequences import SeqRecDataset
+    from repro_torch.distributed.sharding import Varying
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import seqrec
+    from repro_torch.training import optimizer, train_loop, tree
+    c = get_reduced("sasrec-recjpq").model
+    cfg = dataclasses.replace(c, d_model=64, d_ff=1024,
+                              pq=dataclasses.replace(c.pq, assign="random"))
+    params = seqrec.init_seqrec(torch.Generator().manual_seed(0), cfg)
+    it = SeqRecDataset.synthetic(64, cfg.n_items, 10, cfg.max_seq_len,
+                                 seed=0).batches(8, cfg.n_negatives,
+                                                 backbone=cfg.backbone, seed=1)
+    batches = [next(it) for _ in range(2)]
+    ocfg = optimizer.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    worst, out = [0.0], {}
+
+    def identity(key, g, e, g_hat, new_e):
+        for gi, ei, ni in zip(g, e, new_e):
+            want = gi.float() + ei.float()
+            worst[0] = max(worst[0], float((g_hat + ni - want).abs().max()
+                                           / want.abs().max()))
+
+    for dev in ("cpu", cuda_device):
+        mesh = make_test_mesh(multi_pod=True, devices=[dev] * 8)
+        step = train_loop.make_train_step(
+            lambda p, b: seqrec.seqrec_loss(p, b, cfg), ocfg,
+            powersgd_axis="pod", mesh=mesh)
+        p = tree.tree_map(lambda x: x.to(dev), params)
+        s = train_loop.init_opt_state(p, ocfg, powersgd=True)
+        for b in batches:
+            p, s, m = step(p, s, {k: torch.from_numpy(v).to(dev)
+                                  for k, v in b.items()},
+                           trace={"leaf": identity} if dev is cuda_device
+                           else {})
+        out[str(dev)] = (m["loss"].cpu(), p, s["ef"])
+    assert worst[0] <= 1e-5
+    (gl, gp, ge), (cl, cp, ce) = out[str(cuda_device)], out["cpu"]
+    torch.testing.assert_close(gl, cl, rtol=1e-5, atol=1e-5)
+    for (path, a), (_, b) in zip(tree.leaves_with_path(gp),
+                                 tree.leaves_with_path(cp)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5,
+                                   msg=lambda s: f"{path}: {s}")
+    n_pod = 0
+    for (path, a), (_, b) in zip(tree.leaves_with_path(ge),
+                                 tree.leaves_with_path(ce)):
+        if isinstance(a, Varying):
+            n_pod += 1
+            for x, y in zip(a.parts, b.parts, strict=True):
+                torch.testing.assert_close(x.cpu(), y, rtol=1e-5, atol=1e-5,
+                                           msg=lambda s: f"{path}: {s}")
+    assert n_pod >= 2

@@ -102,7 +102,7 @@ def test_variant_bundle_matches_reference(arch_id, shape_name, variant,
     "seqpar_gradrs", "powersgd", "sharded_head", "sharded_fused",
     "sharded_head_bm"])
 def test_mesh_variants_raise_naming_a6b(variant):
-    with pytest.raises(NotImplementedError, match="A 6b"):
+    with pytest.raises(NotImplementedError, match="A 6c"):
         steps.build_step("qwen2.5-14b", "train_4k", variant=variant)
 
 

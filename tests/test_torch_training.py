@@ -289,13 +289,17 @@ def test_unused_float_leaf_gets_zero_gradient():
 
 
 def test_mesh_options_name_the_roadmap_item():
+    """The mesh options are ported (ROADMAP A 6b): PowerSGD still needs
+    its mesh, and ``init_opt_state(powersgd=True)`` adds the error
+    feedback (float32 zeros; a 0-d zero for an integer leaf)."""
     cfg = topt.AdamWConfig()
-    for kw in ({"powersgd_axis": "pod"}, {"mesh": object()},
-               {"grad_shardings": {}}):
-        with pytest.raises(NotImplementedError, match="A 6b"):
-            ttl.make_train_step(lambda p, b: (0, {}), cfg, **kw)
-    with pytest.raises(NotImplementedError, match="A 6b"):
-        ttl.init_opt_state({"w": torch.zeros(2)}, cfg, powersgd=True)
+    with pytest.raises(ValueError, match="mesh"):
+        ttl.make_train_step(lambda p, b: (0, {}), cfg, powersgd_axis="pod")
+    st = ttl.init_opt_state({"w": torch.zeros(2, dtype=torch.bfloat16),
+                             "ids": torch.arange(3)}, cfg, powersgd=True)
+    assert torch.equal(st["ef"]["w"], torch.zeros(2))
+    assert st["ef"]["ids"].shape == () and st["ef"]["w"].dtype == \
+        torch.float32
 
 
 def test_tree_leaf_order_is_the_references():
