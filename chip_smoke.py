@@ -93,7 +93,16 @@ exchange, AdamW), one step against the CPU, a checkpoint restored with
 shardings onto (pod=1, data=4, model=2) and stepped, the trained weights
 served through both kernels bit-identical to the plain route; then
 qwen2.5-14b at full width cut to 2 layers, one PowerSGD step at 4,096
-tokens a pod, checked the same way.  Both kernel sources are built at once, one
+tokens a pod, checked the same way.  Last, the production meshes
+(``mesh_dryrun_phase``, ROADMAP A 6c-1): the dry-run matrix on
+(data=16, model=16) and (pod=2, data=16, model=16) with every position
+on meta (per-device bytes of the arguments each step reads and of all of
+them; how many cells' state fits one card), the six item-sharded serves
+of full-width SASRec-RecJPQ through their bundles on both meshes with
+every position on the card, bit-identical to their one-device bundles
+and launching each kernel once per ``model`` shard as meta counts, and
+one PowerSGD bundle step of qwen2.5-14b cut to 2 layers against the
+baseline bundle's loss.  Both kernel sources are built at once, one
 nvcc each; a pqtopk instance for a width the configs use (m = 2, 4, 6, 8)
 with a stack frame fails the run.  Prints the card's name and power limit,
 the pqtopk launch plans, kernel and per-method timings, a JSON line of
@@ -4014,6 +4023,268 @@ def mesh_phase(dev):
     return launched
 
 
+MESH_DRY_OUT = os.path.join("chiprun_out", "mesh_dryrun_torch")
+# (a) Each mesh variant on one cell of its family, on both meshes: the LM
+# train-step variants on qwen2.5-14b's train_4k (moe_sort_vocab_tp on
+# qwen3-moe-30b-a3b's, the MoE whose dispatch it sorts), the item-sharded
+# serves on sasrec-recjpq's serve_users.
+MESH_VARIANT_CELLS = (
+    [("qwen2.5-14b", "train_4k", v) for v in (
+        "noseq", "seqpar_tp", "seqpar_tp_dots", "vocab_tp",
+        "vocab_tp_gradrs", "powersgd", "gradrs")]
+    + [("qwen3-moe-30b-a3b", "train_4k", "moe_sort_vocab_tp")]
+    + [("sasrec-recjpq", "serve_users", v) for v in (
+        "sharded_head", "sharded_head_bm", "sharded_onehot", "sharded_fused",
+        "sharded_perquery", "sharded_pruned", "sharded_pruned_range",
+        "sharded_hier")])
+# (b) Each full-width item-sharded serve beside its one-device counterpart.
+# ``sharded_head`` scores with plain ``pqtopk`` on each shard; its
+# one-device twin, ``baseline``, holds eight (2,048, 1,271,638) float32
+# gathers at once (83 GB) and does not fit the card, so it is held to
+# ``fused_head``, which the parity contract makes bit-identical to
+# ``pqtopk`` (the engine phase checks that at B=64).
+MESH_SERVE_PAIRS = (("sharded_head", "fused_head"),
+                    ("sharded_fused", "fused_head"),
+                    ("sharded_pruned", "pruned_head"),
+                    ("sharded_pruned_range", "pruned_range_head"),
+                    ("sharded_perquery", "perquery_head"),
+                    ("sharded_hier", "hier_head"))
+# (c) PowerSGD's bundle cut as the mesh phase cuts qwen2.5-14b.
+MESH_PSGD_DIMS = {"global_batch": 2}
+MESH_PSGD_REL = 1e-5
+
+
+def mesh_dryrun_matrix(card):
+    """(a) Every active cell at ``baseline`` and each mesh variant of
+    :data:`MESH_VARIANT_CELLS` on the ``single`` (data=16, model=16) and
+    ``multi`` (pod=2, data=16, model=16) meshes, every position on meta,
+    in processes of their own; one line a record with the per-device
+    bytes of the arguments the step reads and of every argument.  Any
+    failed record fails the run.  -> how many of the 40 cells' per-device
+    state fits one 80 GB card, by mesh."""
+    from repro_torch.launch import dryrun
+    t0 = time.monotonic()
+    cells = [c + ("baseline",) for c in dryrun.iter_cells(
+        meshes=("single", "multi"))]
+    cells += [(a, s, mk, v) for a, s, v in MESH_VARIANT_CELLS
+              for mk in ("single", "multi")]
+    workers = max(1, min(8, os.cpu_count() or 1))
+    results = dryrun.run_matrix(cells, MESH_DRY_OUT, workers=workers)
+    fits = {"single": 0, "multi": 0}
+    for res in results:
+        if not res["ok"]:
+            raise AssertionError(f"mesh dry run {res['arch']} {res['shape']} "
+                                 f"{res['mesh']} {res['variant']}: "
+                                 f"{res['error']}")
+        mem, tot = res["memory"], res["step_total"]
+        if res["variant"] == "baseline":
+            fits[res["mesh"]] += res["state_fits_card"]
+        launches = {k: v for k, v in res["kernel_launches"].items() if v}
+        stand = f" rung {res['rung']}" if "rung" in res else ""
+        print(f"mesh dryrun {res['arch']} {res['shape']} {res['mesh']} "
+              f"{res['variant']}: ok a device reads "
+              f"{mem['argument_size_in_bytes']} B of state "
+              f"{mem['state_size_in_bytes']} B "
+              f"({mem['state_size_in_bytes'] / 1e9:.3f} GB, fits a card "
+              f"{res['state_fits_card']}); step total flops {tot['flops']:.4e}"
+              f" bytes {tot['bytes']:.4e} launches {launches}{stand}")
+    n_cells = len(cells) - 2 * len(MESH_VARIANT_CELLS)
+    print(f"mesh dryrun matrix: {len(results)} records ({n_cells // 2} cells "
+          f"x 2 meshes at baseline, {len(MESH_VARIANT_CELLS)} variant cells "
+          f"x 2) on meta in {time.monotonic() - t0:.1f}s with {workers} "
+          f"processes; per-device state fits one 80 GB card for "
+          f"{fits['single']} of {n_cells // 2} cells on single (data=16, "
+          f"model=16) and {fits['multi']} of {n_cells // 2} on multi (pod=2, "
+          f"data=16, model=16); artifacts in {MESH_DRY_OUT}; {card}")
+    return fits
+
+
+def mesh_serve(dev, card):
+    """(b) sasrec-recjpq ``serve_users`` at full width (N=1,271,638, the
+    config's B=2,048 and S=200; weights and histories drawn by
+    ``steps.materialize`` from seed 0) through each sharded variant's
+    bundle on both production meshes, every position on the card, against
+    its one-device counterpart's bundle: ids and scores bit for bit; the
+    launches of one step equal to the same bundle's count on meta, on the
+    kernels' counters and in the launch record, each kernel launched a
+    multiple of 16 times (once per ``model`` position, not per position);
+    the step's time (CUDA events around one call after the counted one)
+    beside the one-device step's (median of 3).  The meta counts are the
+    records (a) wrote.  -> launches of the counted steps, by kernel-table
+    row."""
+    import gc
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import cost
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_production_mesh
+    arch_id, shape_name = "sasrec-recjpq", "serve_users"
+    rows = {}
+    flat_ms, flat_out = {}, {}
+    for flat_variant in dict.fromkeys(f for _, f in MESH_SERVE_PAIRS):
+        fb = steps.build_step(arch_id, shape_name, dev, flat_variant, seed=0)
+        with torch.inference_mode():
+            flat_out[flat_variant] = fb.step_fn(*fb.args)
+            flat_ms[flat_variant] = time_ms(
+                lambda: fb.step_fn(*fb.args), 1, windows=3)
+        del fb
+    gc.collect()
+    torch.cuda.empty_cache()
+    for mk in ("single", "multi"):
+        mesh = make_production_mesh(multi_pod=mk == "multi",
+                                    devices=[dev] * (512 if mk == "multi"
+                                                     else 256))
+        for variant, flat_variant in MESH_SERVE_PAIRS:
+            t0 = time.monotonic()
+            # The meta count of the same bundle: its record from (a).
+            with open(os.path.join(MESH_DRY_OUT, f"{arch_id}__{shape_name}"
+                                   f"__{mk}__{variant}.json")) as f:
+                pred = json.load(f)["kernel_launches"]
+            b = steps.build_step(arch_id, shape_name, mesh, variant, seed=0)
+            with torch.inference_mode(), shd.activation_plan(b.plan):
+                torch.cuda.synchronize()
+                reset_counts()
+                with cost.recording() as rec:
+                    ids, vals = b.step_fn(*b.args)          # also a warm-up
+                torch.cuda.synchronize()
+                counted = read_counts()
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                b.step_fn(*b.args)
+                end.record()
+                end.synchronize()
+                ms = start.elapsed_time(end)
+            want_ids, want_vals = flat_out[flat_variant]
+            if not (torch.equal(ids, want_ids)
+                    and torch.equal(vals, want_vals)):
+                raise AssertionError(f"mesh serve {mk} {variant}: differs "
+                                     f"from {flat_variant}")
+            if rec.launches != pred or counted != pred:
+                raise AssertionError(
+                    f"mesh serve {mk} {variant}: launched {counted} "
+                    f"(recorded {rec.launches}), meta counted {pred}")
+            if any(v % mesh.shape["model"] for v in counted.values()):
+                raise AssertionError(f"mesh serve {mk} {variant}: launches "
+                                     f"{counted} are not per model shard")
+            for form, v in counted.items():
+                row = ("pq_topk_fused_sentinel" if form == "pq_topk_fused"
+                       and variant != "sharded_fused" else form)
+                rows[row] = rows.get(row, 0) + v
+            print(f"mesh serve {mk} {dict(mesh.shape)} {variant}: B="
+                  f"{ids.shape[0]} k={ids.shape[1]} N={b.arch.model.n_items}"
+                  f" ids and scores bit-identical to {flat_variant}; "
+                  f"launches {({k: v for k, v in counted.items() if v})} = "
+                  f"meta's ({mesh.shape['model']} model shards); step "
+                  f"{ms:.3f} ms (CUDA events, one call after the counted "
+                  f"one), one device {flat_ms[flat_variant]:.3f} ms (median "
+                  f"of 3); {time.monotonic() - t0:.1f}s; "
+                  f"{card}")
+            del b, ids, vals
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_powersgd(dev, card):
+    """(c) qwen2.5-14b ``train_4k`` ``powersgd`` through its bundle on the
+    ``multi`` mesh, every position on the card, cut as the mesh phase cuts
+    it (2 layers, 2 sequences of 4,096 tokens; seed 0): one step, its
+    launches equal to the bundle's count on meta, its loss equal to the
+    ``baseline`` bundle's on the same weights and batch within
+    :data:`MESH_PSGD_REL` (the baseline's forward alone: its full step over
+    both sequences at once does not fit the card)."""
+    import gc
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import cost
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.training import tree as tree_lib
+    full = get_config("qwen2.5-14b")
+    arch = replace(full, model=replace(full.model, n_layers=2), shapes=tuple(
+        replace(sh, dims={**sh.dims, **MESH_PSGD_DIMS})
+        if sh.name == "train_4k" else sh for sh in full.shapes))
+    t0 = time.monotonic()
+    pred = dryrun._measure(steps.build_step(
+        "qwen2.5-14b", "train_4k", dryrun.mesh_for("multi"), "powersgd",
+        arch_override=arch))["launches"]
+    mesh = make_production_mesh(multi_pod=True, devices=[dev] * 512)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = steps.build_step("qwen2.5-14b", "train_4k", mesh, "powersgd",
+                         arch_override=arch, seed=0)
+    if "ef" not in b.args[1]:
+        raise AssertionError("mesh powersgd: the bundle keeps no error "
+                             "feedback")
+    tokens = b.args[2]["tokens"].clone()
+    # The arguments emptied into the call, so only the step holds them
+    # (as ``marked_step``): its release of the old residual returns that
+    # memory before AdamW.
+    step, plan, args = b.step_fn, b.plan, list(b.args)
+    del b
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with shd.activation_plan(plan), cost.recording() as rec:
+        start.record()
+        _, state, mets = step(args.pop(0), args.pop(0), args.pop(0))
+        end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+    counted = read_counts()
+    loss = float(mets["loss"])
+    n_ef = len(tree_lib.leaves(state["ef"]))
+    del state, mets
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = steps.build_step("qwen2.5-14b", "train_4k", mesh, "baseline",
+                            arch_override=arch, seed=0)
+    if not torch.equal(base.args[2]["tokens"], tokens):
+        raise AssertionError("mesh powersgd: the baseline bundle drew "
+                             "another batch")
+    with torch.no_grad(), shd.activation_plan(base.plan):
+        base_loss = float(T.lm_loss(base.args[0], base.args[2],
+                                    base.arch.model)[0])
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = abs(loss - base_loss) / abs(base_loss)
+    if not (rel <= MESH_PSGD_REL and rec.launches == pred
+            and counted == pred):
+        raise AssertionError(
+            f"mesh powersgd: loss {loss!r} against the baseline's "
+            f"{base_loss!r} (rel {rel:.3e}); launched {counted} (recorded "
+            f"{rec.launches}), meta counted {pred}")
+    print(f"mesh powersgd qwen2.5-14b train_4k (2 layers, 2 x 4,096 tokens) "
+          f"on {dict(mesh.shape)}: step-0 loss {loss!r}, baseline bundle's "
+          f"{base_loss!r} (rel {rel:.3e} <= {MESH_PSGD_REL}); launches "
+          f"{({k: v for k, v in counted.items() if v})} = meta's; step "
+          f"{ms:.1f} ms (CUDA events, one step), peak "
+          f"{(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB "
+          f"held, {n_ef} error-feedback leaves; "
+          f"{time.monotonic() - t0:.1f}s; {card}")
+
+
+def mesh_dryrun_phase(dev):
+    """The production meshes (ROADMAP A 6c-1): (a) the matrix on meta,
+    (b) the item-sharded serve at full width on the card, (c) one
+    PowerSGD step through its bundle.  -> (b)'s launches by kernel-table
+    row."""
+    t_phase = time.monotonic()
+    card = card_line()
+    mesh_dryrun_matrix(card)
+    rows = mesh_serve(dev, card)
+    mesh_powersgd(dev, card)
+    print(f"mesh dryrun phase: {time.monotonic() - t_phase:.1f}s on {card}")
+    return rows
+
+
 EB_SRC = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
 RECSYS_ARCHS = ("bst", "dcn-v2", "dien", "fm")
 
@@ -4648,6 +4919,12 @@ def main(argv=None) -> int:
         if r["name"] in mesh:
             r["launches"] += mesh[r["name"]]
             print(f"mesh launches {r['name']}: +{mesh[r['name']]}")
+    mesh_dry = mesh_dryrun_phase(dev)
+    for r in recs:      # the production meshes' sharded serves join too
+        if mesh_dry.get(r["name"]):
+            r["launches"] += mesh_dry[r["name"]]
+            print(f"mesh dryrun launches {r['name']}: "
+                  f"+{mesh_dry[r['name']]}")
     bulk = bags["bst serve_bulk"]
     recs.append({
         "name": "embedding_bag", "route": "cuda", "source": EB_SRC,

@@ -369,17 +369,17 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
     bt = (kernel_ops.group_batch_tile(bq, n_groups) if grouped
           else kernel_ops.effective_batch_tile(bq))
     b_pad = -(-bq // bt) * bt
-    devs = mesh.devices
+    devs = mesh.axis_devices(axis)
     shards = range(n_shards)
-    codes_sh = sharding.shard_rows(codes, mesh)
-    live_sh = (sharding.shard_rows(live, mesh) if live is not None
+    codes_sh = sharding.shard_rows(codes, mesh, axis)
+    live_sh = (sharding.shard_rows(live, mesh, axis) if live is not None
                else [None] * n_shards)
-    child_sh = list(zip(*(sharding.shard_rows(a, mesh)
+    child_sh = list(zip(*(sharding.shard_rows(a, mesh, axis)
                           for a in state.meta_arrays())))
-    s_sh = sharding.replicate(_subid_scores(params, phi), mesh)
+    s_sh = sharding.replicate(_subid_scores(params, phi), mesh, axis)
     if hier:
         factor, s_per_shard = state.super_factor, state.supers_per_shard
-        seed_sh = list(zip(*(sharding.shard_rows(a, mesh)
+        seed_sh = list(zip(*(sharding.shard_rows(a, mesh, axis)
                              for a in state.super_meta_arrays())))
     else:
         factor, seed_sh = 1, child_sh
@@ -397,7 +397,7 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
                     state.backend, seed_sh[i], state.b),
                 live=live_sh[i], **seed_kw))
     thetas, n_seed_used, _ = pruning.run_seed_plans(plans, k, stab_tol)
-    theta_sh = sharding.replicate(sharding.pmax(thetas, mesh), mesh)
+    theta_sh = sharding.replicate(sharding.pmax(thetas, mesh), mesh, axis)
 
     # ---- each shard's survivors; their counts read together -------------
     out, loc = [None] * n_shards, [None] * n_shards
@@ -573,8 +573,8 @@ def top_items_sharded(params: Params, phi: torch.Tensor, k: int, mesh,
             "catalogues serve via 'pqtopk_pruned'")
     n = params["codes"].shape[0]
     _, pad, n_local, offsets = _shard_layout(n, mesh, axis)
-    codes_sh = sharding.shard_rows(params["codes"], mesh)
-    s_sh = sharding.replicate(_subid_scores(params, phi), mesh)
+    codes_sh = sharding.shard_rows(params["codes"], mesh, axis)
+    s_sh = sharding.replicate(_subid_scores(params, phi), mesh, axis)
     if method == "pqtopk_fused":
         return _fused_shard_fn(k, n, n_local, pad)(codes_sh, s_sh, mesh)
     scorers = {"pqtopk": scoring.score_pqtopk,
@@ -627,8 +627,8 @@ def _dense_top_items_sharded(params: Params, phi: torch.Tensor, k: int,
                          f"rows evenly; {n} does not divide by {n_shards}")
     n_local = n // n_shards
     r_sh = []
-    for t, p in zip(sharding.shard_rows(table, mesh),
-                    sharding.replicate(phi, mesh)):
+    for t, p in zip(sharding.shard_rows(table, mesh, axis),
+                    sharding.replicate(phi, mesh, axis)):
         with on_device(t.device):
             r_sh.append(scoring.score_dense(t.to(p.dtype), p).float())
     return topk_lib.local_then_merge_topk(

@@ -279,8 +279,8 @@ def _version(x: torch.Tensor):
         return None
 
 
-def _copied_blocks(x: torch.Tensor, mesh, n_local: int, need):
-    key = (id(x), mesh.devices)
+def _copied_blocks(x: torch.Tensor, devs, n_local: int, need):
+    key = (id(x), devs)
     ver = _version(x)
     with _BLOCKS_LOCK:
         hit = _BLOCKS.get(key)
@@ -288,15 +288,14 @@ def _copied_blocks(x: torch.Tensor, mesh, n_local: int, need):
             return hit[1]
         blocks = {}
         for i in need:
-            dev = mesh.devices[i]
             block = x[i * n_local:min((i + 1) * n_local, x.shape[0])]
             short = n_local - block.shape[0]
             if short:
                 block = torch.cat([block, block.new_zeros(
                     (short,) + tuple(x.shape[1:]))])
-            blocks[i] = block.to(dev).contiguous()
+            blocks[i] = block.to(devs[i]).contiguous()
         # Another thread's stream may read these next: let the copies land.
-        for dev in {mesh.devices[i] for i in need}:
+        for dev in {devs[i] for i in need}:
             if dev.type == "cuda":
                 torch.cuda.current_stream(dev).synchronize()
         if ver is not None:
@@ -306,23 +305,28 @@ def _copied_blocks(x: torch.Tensor, mesh, n_local: int, need):
         return blocks
 
 
-def shard_rows(x: torch.Tensor, mesh) -> List[torch.Tensor]:
-    """``x`` (N, ...) as S contiguous (n_local, ...) blocks, n_local =
-    ceil(N / S), block i on shard i's device; rows past N are zeros.  A
-    full block already on its device is a view (no copy); the others are
-    copied once per version of ``x``."""
-    s = mesh.shape[AXIS]
+def shard_rows(x: torch.Tensor, mesh, axis: str = AXIS
+               ) -> List[torch.Tensor]:
+    """``x`` (N, ...) as S contiguous (n_local, ...) blocks, one per
+    position of ``axis`` (S = ``mesh.shape[axis]``), n_local =
+    ceil(N / S), block i on that position's device
+    (:meth:`ShardMesh.axis_devices`); rows past N are zeros.  On a mesh
+    with other axes their positions hold the same blocks (the reference's
+    ``P(axis, None)``), so each block exists once.  A full block already
+    on its device is a view (no copy); the others are copied once per
+    version of ``x``."""
+    devs = mesh.axis_devices(axis)
     n = x.shape[0]
-    n_local = -(-n // s)
-    out, need = [None] * s, []
-    for i, dev in enumerate(mesh.devices):
+    n_local = -(-n // len(devs))
+    out, need = [None] * len(devs), []
+    for i, dev in enumerate(devs):
         lo, hi = i * n_local, (i + 1) * n_local
         if hi <= n and x.is_contiguous() and same_device(x.device, dev):
             out[i] = x[lo:hi]
         else:
             need.append(i)
     if need:
-        blocks = _copied_blocks(x, mesh, n_local, need)
+        blocks = _copied_blocks(x, devs, n_local, need)
         for i in need:
             out[i] = blocks[i]
     return out

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 # The data sheet's 67 TFLOP/s in float32 counts an FMA as two operations;
@@ -136,8 +136,9 @@ class LaunchInputs:
 @dataclass
 class Recorder:
     """Launches and work of the kernel wrappers called inside one
-    :func:`recording` block.  ``on_launch(name, work, outputs)``, if set,
-    sees each launch's outputs (the dry run tracks their storage);
+    :func:`recording` block.  ``on_launch(name, work, outputs, reads)``, if
+    set, sees each launch's outputs and the tensors its kernel reads (the
+    dry run tracks their storage);
     ``hidden`` > 0 while a wrapper's body runs; ``inputs`` lists each
     launch's :class:`LaunchInputs` (pqtopk launches); ``host_reads`` names
     every :func:`host_read` in order, and ``stand_ins`` those of a meta
@@ -150,11 +151,12 @@ class Recorder:
     inputs: List[LaunchInputs] = field(default_factory=list)
     host_reads: List[str] = field(default_factory=list)
     stand_ins: List[str] = field(default_factory=list)
-    on_launch: Optional[Callable[[str, Work, Any], None]] = None
+    on_launch: Optional[Callable[[str, Work, Any, Tuple], None]] = None
     hidden: int = 0
 
     def add(self, name: str, work: Work, outputs: Any,
-            inputs: Optional[LaunchInputs] = None) -> None:
+            inputs: Optional[LaunchInputs] = None, reads: Tuple = ()
+            ) -> None:
         self.launches[name] += 1
         w = self.work[name]
         w["bytes"] += work.bytes
@@ -163,7 +165,7 @@ class Recorder:
         if inputs is not None:
             self.inputs.append(inputs)
         if self.on_launch is not None:
-            self.on_launch(name, work, outputs)
+            self.on_launch(name, work, outputs, reads)
 
     def totals(self) -> Dict[str, int]:
         return {key: sum(w[key] for w in self.work.values())
@@ -192,10 +194,12 @@ def recording(recorder: Optional[Recorder] = None):
 
 
 def launch(name: str, work: Callable[[], Work], body: Callable[[], Any],
-           inputs: Optional[Callable[[], LaunchInputs]] = None):
+           inputs: Optional[Callable[[], LaunchInputs]] = None,
+           reads: Tuple = ()):
     """Run one wrapper's kernel ``body`` (returns its outputs); inside a
     :func:`recording` block, record the launch as ``name`` with
-    ``work()`` and ``inputs()``, the body's aten ops hidden."""
+    ``work()``, ``inputs()`` and ``reads`` (the tensors the kernel reads;
+    ``None`` entries ignored), the body's aten ops hidden."""
     rec = active()
     if rec is None:
         return body()
@@ -204,7 +208,8 @@ def launch(name: str, work: Callable[[], Work], body: Callable[[], Any],
         out = body()
     finally:
         rec.hidden -= 1
-    rec.add(name, work(), out, None if inputs is None else inputs())
+    rec.add(name, work(), out, None if inputs is None else inputs(),
+            tuple(t for t in reads if t is not None))
     return out
 
 

@@ -41,4 +41,5 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
         return _ref.bag_reduce(t, indices, weights, mode)
 
     return _cost.launch("embedding_bag", lambda: _cost.embedding_bag_work(
-        *table.shape, *indices.shape, weights is not None), body)
+        *table.shape, *indices.shape, weights is not None), body,
+        reads=(table, indices, weights))

@@ -122,7 +122,7 @@ def pq_scores(codes: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         s.shape[2]), body, lambda: _cost.LaunchInputs(
             "pq_scores", "scores", codes.shape[0], codes.shape[1],
             s.shape[2], s.shape[0], codes.element_size(),
-            dtype=str(codes.dtype)))
+            dtype=str(codes.dtype)), reads=(codes, s))
 
 
 def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
@@ -158,7 +158,8 @@ def pq_topk_slots(codes: torch.Tensor, s: torch.Tensor, k: int,
             form, "fused", codes.shape[0], codes.shape[1], s.shape[2],
             s.shape[0], codes.element_size(), k=k, n_items=n_items,
             tile=tile, batch_tile=batch_tile, live=live is not None,
-            slots=slots, table=tile_idx, dtype=str(codes.dtype)))
+            slots=slots, table=tile_idx, dtype=str(codes.dtype)),
+        reads=(codes, s, tile_idx, live))
 
 
 def pq_topk(codes: torch.Tensor, s: torch.Tensor, k: int, *,

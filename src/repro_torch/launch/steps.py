@@ -1,21 +1,35 @@
 """Step builders for the dry-run matrix: for every (arch x shape x variant)
 the step a user would run, with its arguments on a device and nothing
-computed yet.
+computed yet, on one device or over a mesh.
 
   step_fn        -- the step, a function of the arguments
   args           -- its arguments: on ``"meta"`` (the default) shapes and
                     dtypes only, as the reference's ``ShapeDtypeStruct``s
-  in_shardings   -- one ``torch.device`` per argument (one device until the
-                    dry run over the multi-axis mesh, ROADMAP A 6c)
+  in_shardings   -- one device per argument on one device; over a mesh a
+                    tree of :class:`~repro_torch.distributed.sharding.
+                    NamedSharding` per argument, leaf for leaf with it
   donate         -- argnums the step may overwrite (the reference's)
-  plan           -- ``None``: no activation plan on one device
+  plan           -- ``None`` on one device; over a mesh the activation
+                    :class:`~repro_torch.distributed.sharding.ShardingPlan`
+                    to run under
   meta           -- the reference's ``meta``, key for key
 
-The reference's ``launch/steps.py``, branch for branch, on one device.
-Argument dtypes are the reference's (int32 tokens, ids and edges; a step
-widens what a torch op needs as int64 inside).  Variants that change the
-computation on one device are built; those that change only shardings
-or need a mesh axis raise ``NotImplementedError`` naming A 6c.
+The reference's ``launch/steps.py``, branch for branch.  A mesh is a
+:class:`~repro_torch.launch.mesh.ShardMesh` over named axes, such as
+``make_production_mesh(devices=["meta"] * 256)``: its specs are the
+reference's on the same axes, each axis that does not divide its
+dimension dropped (:func:`_fit`).  The single controller runs the step
+on whole tensors on the mesh's lead device; the shardings say where each
+would lie, and the item-sharded variants (``sharded_*``) run their shard
+bodies over the mesh's ``model`` axis.  Argument dtypes are the
+reference's (int32 tokens, ids and edges; a step widens what a torch op
+needs as int64 inside).
+
+On one device a variant that only changes shardings builds the
+baseline's step, and one that reads a mesh axis follows the reference's
+rule for a mesh without it: ``powersgd`` builds the plain train step
+(no ``pod`` axis), ``*gradrs`` constrains nothing, and the ``sharded_*``
+variants run over one shard on the arguments' device.
 :func:`materialize` gives a bundle's arguments values on a device, drawn
 from a seed (codes below ``b``, ids below their table's rows, the pruning
 metadata built from the drawn codes, optimizer state zero).
@@ -23,19 +37,37 @@ metadata built from the drawn codes, optimizer state zero).
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec, get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import NamedSharding, P
+from repro_torch.launch.mesh import ShardMesh, make_mesh
 from repro_torch.training import optimizer as opt_lib, train_loop
 from repro_torch.training import tree as tree_lib
 
-#: Variants that shard (or need a mesh axis) and so wait for ROADMAP A 6c.
-MESH_VARIANTS = ("noseq", "seqpar_tp", "moe_sort_vocab_tp", "powersgd")
-MESH_PREFIXES = ("vocab_tp", "sharded_")
-MESH_SUFFIXES = ("gradrs", "_bm")
+#: Every variant name the builders read, by family (``baseline`` first);
+#: as in the reference, any other name builds the baseline's step.
+VARIANTS = {
+    "lm": ("baseline", "pqtopk_head", "dense_head", "onehot_head",
+           "fused_head", "pruned_head", "pruned_range_head", "perquery_head",
+           "approx_head", "noseq", "seqpar_tp", "seqpar_tp_dots", "vocab_tp",
+           "vocab_tp_gradrs", "moe_sort", "moe_sort_vocab_tp", "powersgd",
+           "gradrs"),
+    "seqrec": ("baseline", "dense_head", "recjpq_head", "onehot_head",
+               "fused_head", "pruned_head", "pruned_range_head",
+               "mutable_head", "approx_head", "perquery_head", "hier_head",
+               "sharded_head", "sharded_head_bm", "sharded_onehot",
+               "sharded_fused", "sharded_perquery", "sharded_pruned",
+               "sharded_pruned_range", "sharded_hier"),
+    "recsys": ("baseline", "dense_head", "recjpq_head", "onehot_head",
+               "fused_head"),
+    "gnn": ("baseline",),
+}
 
 
 @dataclass
@@ -49,6 +81,7 @@ class StepBundle:
     meta: Dict[str, Any]
     arch: Optional[ArchConfig] = None
     shape: Optional[ShapeSpec] = None
+    mesh: Optional[ShardMesh] = None
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -60,28 +93,77 @@ def _opt_cfg(model) -> opt_lib.AdamWConfig:
                                moment_dtype=model.moment_dtype)
 
 
-def check_variant(variant: str) -> None:
-    if (variant in MESH_VARIANTS or variant.startswith(MESH_PREFIXES)
-            or variant.endswith(MESH_SUFFIXES)):
-        raise NotImplementedError(
-            f"variant {variant!r} changes shardings or needs a mesh axis: "
-            "its dry run over the multi-axis mesh is not ported yet "
-            "(ROADMAP A 6c)")
+# ---------------------------------------------------------------------------
+# shardings of the arguments (the reference's helpers)
+# ---------------------------------------------------------------------------
+
+def _fit(mesh, x, spec: P) -> NamedSharding:
+    """``spec`` on ``mesh`` for ``x``: axes absent from the mesh left out,
+    and a dimension whose axes do not divide it replicated."""
+    fixed = []
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            fixed.append(None)
+            continue
+        axes = tuple(a for a in (ax if isinstance(ax, tuple) else (ax,))
+                     if a in mesh.axis_names)
+        size = math.prod(mesh.shape[a] for a in axes)
+        fixed.append(axes if axes and x.shape[dim] % size == 0 else None)
+    fixed += [None] * (x.dim() - len(fixed))
+    return NamedSharding(mesh, P(*fixed))
 
 
-def _bundle(arch, shape, step_fn, args, donate, meta) -> StepBundle:
+def _tree_shardings(mesh, tree, spec_fn) -> Any:
+    return tree_lib.tree_map(lambda x: _fit(mesh, x, spec_fn(x)), tree)
+
+
+def _batch_spec(mesh) -> Tuple[str, ...]:
+    return shd.batch_axes(mesh)
+
+
+def _rows_spec(b_axes):
+    """The batch over ``b_axes``, the other dimensions whole."""
+    return lambda x: P(b_axes, *([None] * (x.dim() - 1)))
+
+
+def _opt_shardings(mesh, opt_abs, param_shard):
+    """Optimizer moments mirror the parameter shardings; a moment of lower
+    rank than its parameter's spec (error feedback of a frozen integer
+    leaf is a scalar) is replicated."""
+    repl = NamedSharding(mesh, P())
+
+    def like(tree):
+        return tree_lib.tree_map(
+            lambda t, s: s if len(s.spec) <= t.dim() else repl, tree,
+            param_shard)
+    return {"step": repl, "m": like(opt_abs["m"]), "v": like(opt_abs["v"]),
+            **({"ef": like(opt_abs["ef"])} if "ef" in opt_abs else {})}
+
+
+def _bundle(arch, shape, step_fn, args, donate, meta, mesh=None,
+            in_shardings=None, plan=None) -> StepBundle:
+    if mesh is None:
+        in_shardings = (torch.device("meta"),) * len(args)
     return StepBundle(name=f"{arch.arch_id}__{shape.name}", step_fn=step_fn,
-                      args=args, in_shardings=(torch.device("meta"),)
-                      * len(args), donate=donate, plan=None, meta=meta,
-                      arch=arch, shape=shape)
+                      args=args, in_shardings=in_shardings, donate=donate,
+                      plan=plan, meta=meta, arch=arch, shape=shape,
+                      mesh=mesh)
 
 
-def _train_bundle(arch, shape, params_abs, loss_fn, batch_abs, meta):
+def _train_bundle(arch, shape, params_abs, loss_fn, batch_abs, meta, mesh,
+                  p_shard, b_shard, plan, *, powersgd=False,
+                  grad_shardings=False):
     ocfg = _opt_cfg(arch.model)
-    opt_abs = train_loop.init_opt_state(params_abs, ocfg, abstract=True)
-    step = train_loop.make_train_step(loss_fn, ocfg)
+    opt_abs = train_loop.init_opt_state(params_abs, ocfg, abstract=True,
+                                        powersgd=powersgd)
+    step = train_loop.make_train_step(
+        loss_fn, ocfg, powersgd_axis="pod" if powersgd else None,
+        mesh=mesh if powersgd else None,
+        grad_shardings=p_shard if grad_shardings else None)
+    shards = None if mesh is None else (
+        p_shard, _opt_shardings(mesh, opt_abs, p_shard), b_shard)
     return _bundle(arch, shape, step, (params_abs, opt_abs, batch_abs),
-                   (0, 1), meta)
+                   (0, 1), meta, mesh, shards, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +177,7 @@ LM_HEADS = {"pqtopk_head": "pqtopk", "dense_head": "dense",
             "perquery_head": "pqtopk_pruned", "approx_head": "pqtopk_approx"}
 
 
-def _lm_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str
+def _lm_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str, mesh
                ) -> StepBundle:
     from repro_torch.models import transformer as T
     cfg = arch.model
@@ -106,37 +188,87 @@ def _lm_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str
         cfg = replace(cfg, pq_head=replace(cfg.pq_head, query_grouping=True))
     if variant == "seqpar_tp_dots":
         cfg = replace(cfg, remat=False)   # trade memory for recompute flops
-    if variant == "moe_sort" and cfg.moe is not None:
+    moe_sort = variant in ("moe_sort", "moe_sort_vocab_tp") \
+        and cfg.moe is not None
+    if moe_sort:
         cfg = replace(cfg, moe_impl="sort")
     arch = replace(arch, model=cfg)
     params_abs = T.abstract_lm(cfg)
     bsz, seq = shape.dims["global_batch"], shape.dims["seq_len"]
+    plan = p_shard = None
+    if mesh is not None:
+        plan = shd.lm_activation_plan(
+            mesh, shard_seq=variant != "noseq",
+            tp_internal=variant in ("seqpar_tp", "seqpar_tp_dots"),
+            vocab_tp=variant.startswith("vocab_tp"))
+        if moe_sort and variant.endswith("vocab_tp"):
+            plan = shd.lm_activation_plan(mesh, shard_seq=True,
+                                          vocab_tp=True)
+        b_axes = _batch_spec(mesh)
+        p_shard = shd.param_shardings(mesh, params_abs,
+                                      shd.lm_param_rules(cfg.scan_layers))
 
     if shape.kind == "train":
         batch_abs = {"tokens": _meta((bsz, seq), torch.int32),
                      "targets": _meta((bsz, seq), torch.int32)}
-        return _train_bundle(arch, shape, params_abs,
-                             lambda p, b: T.lm_loss(p, b, cfg), batch_abs,
-                             {"kind": "train", "tokens": bsz * seq})
+        powersgd = (variant == "powersgd" and mesh is not None
+                    and "pod" in mesh.axis_names)
+        b_shard = None
+        if mesh is not None:
+            b_shard = _tree_shardings(mesh, batch_abs,
+                                      lambda x: P(b_axes, None))
+        if powersgd:
+            # Inside the manual-pod region the pod axis leaves every
+            # activation spec, and the (un)embedding is replicated (the
+            # reference's partitioner workaround, kept spec for spec).
+            plan = shd.strip_axis(plan, "pod")
+            repl = NamedSharding(mesh, P())
+            for key in ("embed", "head"):
+                if key in p_shard:
+                    p_shard[key] = tree_lib.tree_map(lambda _: repl,
+                                                     p_shard[key])
+        return _train_bundle(
+            arch, shape, params_abs, lambda p, b: T.lm_loss(p, b, cfg),
+            batch_abs, {"kind": "train", "tokens": bsz * seq}, mesh,
+            p_shard, b_shard, plan, powersgd=powersgd,
+            grad_shardings=mesh is not None and variant.endswith("gradrs"))
 
     if shape.kind == "prefill":
+        tok_abs = _meta((bsz, seq), torch.int32)
+        shards = None if mesh is None else (
+            p_shard, _fit(mesh, tok_abs, P(b_axes, None)))
         return _bundle(arch, shape, lambda p, t: T.lm_prefill(p, t, cfg),
-                       (params_abs, _meta((bsz, seq), torch.int32)), (),
-                       {"kind": "prefill", "tokens": bsz * seq})
+                       (params_abs, tok_abs), (),
+                       {"kind": "prefill", "tokens": bsz * seq}, mesh,
+                       shards, plan)
 
     # decode (decode_32k / long_500k): one token, KV cache of seq_len.
     caches_abs = T.init_caches(cfg, bsz, seq, abstract=True)
+    tok_abs, pos_abs = _meta((bsz,), torch.int32), _meta((), torch.int32)
     head = LM_HEADS.get(variant, "pqtopk")
+    shards = None
+    if mesh is not None:
+        # Batch over data when it divides; sequence over model (+data for
+        # B=1).  Stacked caches (L, B, S, H, D) keep L whole.
+        if bsz >= max(mesh.shape.get("data", 1), 1):
+            cache_spec = (b_axes, "model", None, None)
+        else:
+            cache_spec = (None, ("data", "model"), None, None)
+        if isinstance(caches_abs, dict):
+            cache_spec = (None,) + cache_spec
+        shards = (p_shard, _fit(mesh, tok_abs, P(b_axes)),
+                  NamedSharding(mesh, P()),
+                  _tree_shardings(mesh, caches_abs,
+                                  lambda x: P(*cache_spec)))
 
     def decode(p, tok, pos, caches):
         return T.lm_decode_step(p, tok, pos, caches, cfg, k=64,
                                 head_method=head)
 
     return _bundle(arch, shape, decode,
-                   (params_abs, _meta((bsz,), torch.int32),
-                    _meta((), torch.int32), caches_abs), (3,),
+                   (params_abs, tok_abs, pos_abs, caches_abs), (3,),
                    {"kind": "decode", "tokens": bsz, "kv_len": seq,
-                    "head": head})
+                    "head": head}, mesh, shards, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -150,19 +282,27 @@ SEQREC_METHODS = {"dense_head": "dense", "recjpq_head": "recjpq",
                   "pruned_range_head": "pqtopk_pruned",
                   "mutable_head": "pqtopk_pruned",
                   "approx_head": "pqtopk_approx",
+                  "sharded_head": "pqtopk",
+                  "sharded_head_bm": "pqtopk",
+                  "sharded_onehot": "pqtopk_onehot",
+                  "sharded_fused": "pqtopk_fused",
                   "perquery_head": "pqtopk_pruned",
-                  "hier_head": "pqtopk_pruned"}
+                  "sharded_perquery": "pqtopk_pruned",
+                  "sharded_pruned": "pqtopk_pruned",
+                  "sharded_pruned_range": "pqtopk_pruned",
+                  "hier_head": "pqtopk_pruned",
+                  "sharded_hier": "pqtopk_pruned"}
 
 
-def _seqrec_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str
+def _seqrec_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str, mesh
                    ) -> StepBundle:
     from repro_torch.models import seqrec as SR
     cfg = arch.model
-    if variant == "pruned_range_head":
+    if variant in ("pruned_range_head", "sharded_pruned_range"):
         cfg = replace(cfg, pq=replace(cfg.pq, bound_backend="range"))
-    if variant == "perquery_head":
+    if variant in ("perquery_head", "sharded_perquery"):
         cfg = replace(cfg, pq=replace(cfg.pq, query_grouping=True))
-    if variant == "hier_head":
+    if variant in ("hier_head", "sharded_hier"):
         cfg = replace(cfg, pq=replace(cfg.pq, super_factor=4))
     arch = replace(arch, model=cfg)
     params_abs = SR.abstract_seqrec(cfg)
@@ -173,6 +313,12 @@ def _seqrec_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str
         params_abs = {**params_abs, "item_emb": {
             **emb, "live": _meta((emb["codes"].shape[0],), torch.bool)}}
     bsz, seq = shape.dims["global_batch"], shape.dims["seq_len"]
+    plan = p_shard = None
+    if mesh is not None:
+        plan = shd.lm_activation_plan(mesh, shard_seq=False)
+        b_axes = _batch_spec(mesh)
+        p_shard = shd.param_shardings(mesh, params_abs,
+                                      shd.seqrec_param_rules())
 
     if shape.kind == "train":
         batch_abs = {
@@ -180,21 +326,42 @@ def _seqrec_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str
             "targets": _meta((bsz, seq), torch.int32),
             "negatives": _meta((bsz, seq, cfg.n_negatives), torch.int32),
         }
+        b_shard = None if mesh is None else _tree_shardings(
+            mesh, batch_abs, _rows_spec(b_axes))
         return _train_bundle(arch, shape, params_abs,
                              lambda p, b: SR.seqrec_loss(p, b, cfg),
                              batch_abs,
-                             {"kind": "train", "tokens": bsz * seq})
+                             {"kind": "train", "tokens": bsz * seq}, mesh,
+                             p_shard, b_shard, plan)
 
     # serve_users: retrieval over the full catalogue.
     method = SEQREC_METHODS.get(variant, "pqtopk")
+    sharded = variant.startswith("sharded_")
+    seq_abs = _meta((bsz, seq), torch.int32)
+    shards = None
+    if mesh is not None:
+        serve_b_axes = b_axes
+        if variant.endswith("_bm"):
+            # The backbone's batch over every axis, not data alone.
+            serve_b_axes = tuple(mesh.axis_names)
+            plan = shd.ShardingPlan(mesh, {
+                "seq_hidden": P(serve_b_axes, None, None),
+                "phi": P(serve_b_axes, None),
+            })
+        shards = (p_shard, _fit(mesh, seq_abs, P(serve_b_axes, None)))
 
     def serve(p, seqs):
-        return SR.serve_topk(p, seqs, cfg, k=10, method=method)
+        shard_mesh = None
+        if sharded:
+            shard_mesh = mesh if mesh is not None else make_mesh(
+                1, [seqs.device])
+        return SR.serve_topk(p, seqs, cfg, k=10, method=method,
+                             sharded_mesh=shard_mesh)
 
-    return _bundle(arch, shape, serve,
-                   (params_abs, _meta((bsz, seq), torch.int32)), (),
+    return _bundle(arch, shape, serve, (params_abs, seq_abs), (),
                    {"kind": "retrieval", "users": bsz,
-                    "n_items": cfg.n_items, "method": method})
+                    "n_items": cfg.n_items, "method": method}, mesh, shards,
+                   plan)
 
 
 # ---------------------------------------------------------------------------
@@ -218,24 +385,38 @@ RECSYS_METHODS = {"dense_head": "dense", "recjpq_head": "recjpq",
                   "fused_head": "pqtopk_fused"}
 
 
-def _recsys_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str
+def _recsys_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str, mesh
                    ) -> StepBundle:
     from repro_torch.models import recsys as R
     cfg = arch.model
     params_abs = R.abstract_recsys(cfg)
     bsz = shape.dims["global_batch"]
+    plan = p_shard = None
+    if mesh is not None:
+        plan = shd.recsys_activation_plan(mesh)
+        b_axes = _batch_spec(mesh)
+        p_shard = shd.param_shardings(mesh, params_abs,
+                                      shd.recsys_param_rules())
+
+    def batch_shards(batch_abs):
+        return None if mesh is None else _tree_shardings(
+            mesh, batch_abs, _rows_spec(b_axes))
 
     if shape.kind == "train":
         batch_abs = dict(_recsys_batch_abs(cfg, bsz),
                          label=_meta((bsz,), torch.float32))
         return _train_bundle(arch, shape, params_abs,
                              lambda p, b: R.ctr_loss(p, b, cfg), batch_abs,
-                             {"kind": "train", "examples": bsz})
+                             {"kind": "train", "examples": bsz}, mesh,
+                             p_shard, batch_shards(batch_abs), plan)
 
+    batch_abs = _recsys_batch_abs(cfg, bsz)
+    shards = None if mesh is None else (p_shard, batch_shards(batch_abs))
     if shape.kind == "serve":
         return _bundle(arch, shape, lambda p, b: R.ctr_logits(p, b, cfg),
-                       (params_abs, _recsys_batch_abs(cfg, bsz)), (),
-                       {"kind": "serve", "examples": bsz})
+                       (params_abs, batch_abs), (),
+                       {"kind": "serve", "examples": bsz}, mesh, shards,
+                       plan)
 
     # retrieval_cand: PQTopK over the candidate catalogue.
     method = RECSYS_METHODS.get(variant, "pqtopk")
@@ -243,18 +424,17 @@ def _recsys_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str
     def retrieve(p, b):
         return R.retrieve_topk(p, b, cfg, k=10, method=method)
 
-    return _bundle(arch, shape, retrieve,
-                   (params_abs, _recsys_batch_abs(cfg, bsz)), (),
+    return _bundle(arch, shape, retrieve, (params_abs, batch_abs), (),
                    {"kind": "retrieval",
                     "n_candidates": shape.dims["n_candidates"],
-                    "method": method})
+                    "method": method}, mesh, shards, plan)
 
 
 # ---------------------------------------------------------------------------
 # GNN family
 # ---------------------------------------------------------------------------
 
-def _gnn_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str
+def _gnn_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str, mesh
                 ) -> StepBundle:
     from repro_torch.models import gnn as G
     cfg = arch.model
@@ -269,6 +449,7 @@ def _gnn_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str
             "labels": _meta((bn,), torch.int32),
         }
         loss = G.gnn_minibatch_loss
+        specs = None
     elif shape.name == "molecule":
         gbatch, n, e = d["graph_batch"], d["n_nodes"], d["n_edges"]
         batch_abs = {
@@ -278,6 +459,8 @@ def _gnn_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str
             "labels": _meta((gbatch,), torch.int32),
         }
         loss = G.gnn_graph_batch_loss
+        specs = {"feats": ("all", None), "edges": ("all", None),
+                 "graph_ids": ("all",), "labels": ("all",)}
     else:  # full_graph_sm / ogb_products: full-batch edge-list training
         batch_abs = {
             "feats": _meta((d["n_nodes"], d["d_feat"]), torch.float32),
@@ -286,15 +469,32 @@ def _gnn_bundle(arch: ArchConfig, shape: ShapeSpec, variant: str
             "label_mask": _meta((d["n_nodes"],), torch.float32),
         }
         loss = G.gnn_loss
+        # Node arrays replicated, the edge list over every device.
+        specs = {"feats": (), "edges": ("all", None), "labels": (),
+                 "label_mask": ()}
     n_classes = d.get("n_classes", cfg.n_classes)
     if n_classes != cfg.n_classes:
         cfg = replace(cfg, n_classes=n_classes)
         arch = replace(arch, model=cfg)
     params_abs = G.abstract_gnn(cfg, d["d_feat"])
+    plan = p_shard = b_shard = None
+    if mesh is not None:
+        plan = shd.gnn_activation_plan(mesh)
+        p_shard = shd.param_shardings(mesh, params_abs,
+                                      shd.gnn_param_rules())
+        all_axes = tuple(mesh.axis_names)
+        if specs is None:
+            b_shard = _tree_shardings(mesh, batch_abs,
+                                      _rows_spec(_batch_spec(mesh)))
+        else:
+            b_shard = {k: _fit(mesh, batch_abs[k], P(*(
+                all_axes if e == "all" else e for e in spec)))
+                for k, spec in specs.items()}
     return _train_bundle(
         arch, shape, params_abs,
         functools.partial(lambda p, b, c: loss(p, b, c), c=cfg), batch_abs,
-        {"kind": "train", "shape": shape.name})
+        {"kind": "train", "shape": shape.name}, mesh, p_shard, b_shard,
+        plan)
 
 
 # ---------------------------------------------------------------------------
@@ -309,23 +509,27 @@ _BUILDERS = {
 }
 
 
-def build_step(arch_id: str, shape_name: str, device="meta",
+def build_step(arch_id: str, shape_name: str, mesh_or_device="meta",
                variant: str = "baseline",
                arch_override: Optional[ArchConfig] = None,
                seed: int = 0) -> StepBundle:
-    """The (arch, shape, variant) step with its arguments on ``device``:
-    meta stand-ins (no storage), or on another device values drawn by
-    :func:`materialize` from ``seed``."""
+    """The (arch, shape, variant) step.  ``mesh_or_device`` a device: the
+    one-device bundle with its arguments on it; a :class:`ShardMesh`: the
+    mesh bundle (shardings and plan over its axes) with its arguments on
+    the mesh's lead device.  On meta the arguments are stand-ins (no
+    storage); elsewhere values drawn by :func:`materialize` from
+    ``seed``."""
     arch = arch_override if arch_override is not None else get_config(arch_id)
     shape = arch.shape(shape_name)
     if shape.skip_reason:
         raise ValueError(
             f"{arch_id}/{shape_name} is a documented skip: {shape.skip_reason}")
-    check_variant(variant)
-    bundle = _BUILDERS[arch.family](arch, shape, variant)
+    mesh = mesh_or_device if isinstance(mesh_or_device, ShardMesh) else None
+    device = mesh.lead if mesh is not None else torch.device(mesh_or_device)
+    bundle = _BUILDERS[arch.family](arch, shape, variant, mesh)
     bundle.meta["variant"] = variant
     bundle.meta["family"] = arch.family
-    if torch.device(device).type != "meta":
+    if device.type != "meta":
         bundle = materialize(bundle, device, seed)
     return bundle
 
@@ -461,4 +665,5 @@ def materialize(bundle: StepBundle, device, seed: int = 0) -> StepBundle:
         else:
             args.append(_fill_batch(bundle, i, a, gen_cpu, gen_dev, device))
     return replace(bundle, args=tuple(args),
-                   in_shardings=(device,) * len(args))
+                   in_shardings=bundle.in_shardings if bundle.mesh
+                   is not None else (device,) * len(args))

@@ -28,9 +28,9 @@ REF_KEYS = {"arch", "shape", "mesh", "variant", "devices", "ok", "lower_s",
             "compile_s", "memory", "flops_per_device", "bytes_per_device",
             "collectives", "collective_bytes_per_device", "meta",
             "roofline"}
-MEMORY_KEYS = {"argument_size_in_bytes", "output_size_in_bytes",
-               "temp_size_in_bytes", "alias_size_in_bytes",
-               "generated_code_size_in_bytes"}
+MEMORY_KEYS = {"argument_size_in_bytes", "state_size_in_bytes",
+               "output_size_in_bytes", "temp_size_in_bytes",
+               "alias_size_in_bytes", "generated_code_size_in_bytes"}
 
 COUNT_CELLS = [
     ("qwen2.5-14b", "train_4k", "baseline"),
@@ -341,12 +341,13 @@ def test_roofline_has_the_eager_and_the_least_traffic():
 
 
 def test_run_cell_records_a_failure(tmp_path):
-    res = dryrun.run_cell("qwen2.5-14b", "train_4k", "card", "noseq",
+    res = dryrun.run_cell("qwen2.5-14b", "long_500k", "card", "baseline",
                           str(tmp_path), verbose=False)
     assert res["ok"] is False
-    assert "A 6c" in res["error"] and "traceback" in res
-    assert json.loads((tmp_path / "qwen2.5-14b__train_4k__card__noseq.json"
-                       ).read_text())["ok"] is False
+    assert res["error"].startswith("ValueError")
+    assert "documented skip" in res["error"] and "traceback" in res
+    assert json.loads((tmp_path / "qwen2.5-14b__long_500k__card__"
+                                   "baseline.json").read_text())["ok"] is False
 
 
 def test_main_runs_then_skips_a_cached_cell(tmp_path, capsys):
@@ -358,18 +359,99 @@ def test_main_runs_then_skips_a_cached_cell(tmp_path, capsys):
     assert "done: 0 ok, 0 failed, 1 cached" in capsys.readouterr().out
 
 
-def test_meshes_and_mesh_variants_raise_naming_a6b(tmp_path):
+def test_meshes_and_mesh_variants_run(tmp_path, capsys):
+    """``--mesh single|multi|both`` and the mesh variants run; the default
+    matrix is still the 40 card cells; ``--save-hlo`` and an unknown
+    mesh are refused."""
     for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="A 6c"):
-            list(dryrun.iter_cells(meshes=(mesh,)))
-        with pytest.raises(NotImplementedError, match="A 6c"):
-            dryrun.main(["--mesh", mesh, "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A 6c"):
-        dryrun.main(["--variant", "vocab_tp", "--out", str(tmp_path)])
+        cells = list(dryrun.iter_cells(meshes=(mesh,)))
+        assert len(cells) == 40 and {c[2] for c in cells} == {mesh}
+    argv = ["--arch", "fm", "--shape", "retrieval_cand", "--out",
+            str(tmp_path)]
+    assert dryrun.main(argv + ["--mesh", "both"]) == 0
+    assert "done: 2 ok, 0 failed, 0 cached" in capsys.readouterr().out
+    assert dryrun.main(argv + ["--mesh", "multi", "--variant",
+                               "vocab_tp"]) == 0
+    assert "done: 1 ok, 0 failed, 0 cached" in capsys.readouterr().out
+    rec = json.loads((tmp_path / "fm__retrieval_cand__multi__vocab_tp.json"
+                      ).read_text())
+    assert rec["ok"] and rec["devices"] == 512
+    assert rec["mesh_shape"] == {"pod": 2, "data": 16, "model": 16}
     with pytest.raises(SystemExit):
         dryrun.main(["--save-hlo", "--out", str(tmp_path)])
+    with pytest.raises(ValueError, match="mesh"):
+        list(dryrun.iter_cells(meshes=("pods",)))
     cells = list(dryrun.iter_cells())
     assert len(cells) == 40 and {c[2] for c in cells} == {"card"}
+
+
+#: XLA's per-device ``argument_size_in_bytes`` in the reference's
+#: committed records (``benchmarks/artifacts/dryrun/<name>.json``).
+REFERENCE_ARGUMENT_BYTES = {
+    "qwen2.5-14b__decode_32k__multi__pruned_head": 1_726_517_012,
+    "qwen2.5-14b__decode_32k__single__pruned_head": 3_337_129_764,
+    "sasrec-recjpq__serve_users__multi__baseline": 22_662_512,
+    "sasrec-recjpq__serve_users__multi__mutable_head": 24_252_103,
+    "sasrec-recjpq__serve_users__multi__perquery_head": 22_980_464,
+    "sasrec-recjpq__serve_users__multi__pruned_head": 22_980_464,
+    "sasrec-recjpq__serve_users__multi__pruned_range_head": 22_682_384,
+    "sasrec-recjpq__serve_users__multi__sharded_pruned": 22_662_512,
+    "sasrec-recjpq__serve_users__multi__sharded_pruned_range": 22_662_512,
+    "sasrec-recjpq__serve_users__single__baseline": 22_713_712,
+    "sasrec-recjpq__serve_users__single__mutable_head": 24_303_303,
+    "sasrec-recjpq__serve_users__single__perquery_head": 23_031_664,
+    "sasrec-recjpq__serve_users__single__pruned_head": 23_031_664,
+    "sasrec-recjpq__serve_users__single__pruned_range_head": 22_733_584,
+    "sasrec-recjpq__serve_users__single__sharded_pruned": 22_713_712,
+    "sasrec-recjpq__serve_users__single__sharded_pruned_range": 22_713_712,
+}
+#: The arguments those steps hold but never read, per device: the flat
+#: bitmask metadata (621, 8, 16) uint32 that ``pqtopk`` and the sharded
+#: cascade's shard-aligned rebuild leave alone; the flat range metadata
+#: (621 tiles x 8 x int16 min and max); qwen2.5's dense ``head.w``
+#: (5120, 152064) bf16 over (data, model), which the pruned head skips.
+UNREAD_BYTES = {("sasrec-recjpq", "baseline"): 317_952,
+                ("sasrec-recjpq", "sharded_pruned"): 317_952,
+                ("sasrec-recjpq", "sharded_pruned_range"): 19_872,
+                ("qwen2.5-14b", "pruned_head"): 6_082_560}
+
+
+@pytest.mark.parametrize("record", sorted(REFERENCE_ARGUMENT_BYTES))
+def test_mesh_argument_bytes_equal_xla(record, tmp_path):
+    """The port's per-device bytes of the arguments its step reads equal
+    XLA's ``argument_size_in_bytes`` to the byte, on both production
+    meshes at full width; the unread arguments are exactly the ones XLA
+    drops.  The mesh record's keys: the whole step's counts under
+    ``step_total``, the per-device counts ``null`` beside the A 6c-2
+    note."""
+    import os
+    arch_id, shape_name, mesh, variant = record.split("__")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmarks", "artifacts", "dryrun",
+                           record + ".json")) as f:
+        xla = json.load(f)["memory"]["argument_size_in_bytes"]
+    assert xla == REFERENCE_ARGUMENT_BYTES[record]
+    res = dryrun.run_cell(arch_id, shape_name, mesh, variant, str(tmp_path),
+                          verbose=False)
+    assert res["ok"], res.get("error")
+    mem = res["memory"]
+    assert mem["argument_size_in_bytes"] == xla
+    assert mem["state_size_in_bytes"] - xla == UNREAD_BYTES.get(
+        (arch_id, variant), 0)
+    assert set(mem) == MEMORY_KEYS
+    assert (mem["alias_size_in_bytes"] > 0) == ("decode" in shape_name)
+    assert res["devices"] == (512 if mesh == "multi" else 256)
+    assert res["state_fits_card"] is True
+    for key in ("flops_per_device", "bytes_per_device", "collectives",
+                "collective_bytes_per_device", "roofline"):
+        assert res[key] is None, key
+    assert "A 6c-2" in res["per_device_note"]
+    assert res["step_total"]["flops"] > 0
+    # One pruned seed's pq_scores per cascade, one per model shard in a
+    # sharded one; none in pqtopk or the grouped cascade.
+    assert res["kernel_launches"]["pq_scores"] == {
+        "baseline": 0, "perquery_head": 0, "sharded_pruned": 16,
+        "sharded_pruned_range": 16}.get(variant, 1)
 
 
 @pytest.mark.parametrize("work,ms,by", [

@@ -420,6 +420,42 @@ def test_collectives_and_row_blocks():
     assert tshd.shard_rows(x, mesh)[3].tolist() == [[-1, -1], [0, 0], [0, 0]]
 
 
+@pytest.mark.parametrize("axes,shape", [
+    (("data", "model"), (2, 4)),
+    (("pod", "data", "model"), (2, 2, 4))])
+def test_multi_axis_mesh_shards_over_model(axes, shape):
+    """On a mesh with ``data`` (and ``pod``) beside ``model``, the row
+    blocks and the sharded routes take one block per ``model`` position:
+    ``shard_rows`` gives the one-axis 4-shard mesh's blocks, and the
+    pruned route gives its values, ids and kernel launches (the other
+    axes add none)."""
+    from repro_torch.configs.base import PQConfig as TPQConfig
+    from repro_torch.core import retrieval_head as trh
+    from repro_torch.distributed import sharding as tshd
+    from repro_torch.kernels import cost
+    from repro_torch.launch.mesh import ShardMesh
+    mesh = ShardMesh(["cpu"] * int(np.prod(shape)), axes, shape)
+    flat = _mesh(4)
+    codes, sub, phi, _, _ = _inputs(N_ODD, 8, "hot")
+    blocks = tshd.shard_rows(_t(codes), mesh)
+    want = tshd.shard_rows(_t(codes), flat)
+    assert len(blocks) == 4
+    assert all(torch.equal(b, w) for b, w in zip(blocks, want))
+    params = {"codes": _t(codes), "sub_emb": _t(sub)}
+    cfg = TPQConfig(m=M, b=B_SUB)
+    out = {}
+    for name, m in (("multi", mesh), ("flat", flat)):
+        with cost.recording() as rec:
+            v, i = trh.top_items_sharded(params, _t(phi), K, m,
+                                         method="pqtopk_pruned",
+                                         pq_cfg=cfg, ladder=LADDER)
+        out[name] = (v, i, dict(rec.launches))
+    assert torch.equal(out["multi"][0], out["flat"][0])
+    assert torch.equal(out["multi"][1], out["flat"][1])
+    assert out["multi"][2] == out["flat"][2]
+    assert out["multi"][2]["pq_topk_fused"] == 4
+
+
 def test_refusals_and_mesh():
     """What the reference refuses, the port refuses: a tombstone mask on a
     route that ignores it, a dense table that does not divide, grouping

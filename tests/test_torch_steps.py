@@ -12,6 +12,9 @@ both packages get the same override.  Tolerances: float outputs at
 rtol=atol=1e-5 (the frameworks' float32 sums differ in order); top-k ids
 equal wherever the values are not tied within that tolerance."""
 import dataclasses
+import functools
+import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +24,8 @@ import torch
 
 from repro.configs.base import get_config as jget_config
 from repro.configs.base import get_reduced as jget_reduced
+from jax.sharding import AbstractMesh
+
 from repro.launch import steps as jsteps
 from repro_torch.configs.base import get_config, get_reduced, list_archs
 from repro_torch.launch import steps
@@ -101,9 +106,151 @@ def test_variant_bundle_matches_reference(arch_id, shape_name, variant,
     "noseq", "seqpar_tp", "vocab_tp", "moe_sort_vocab_tp", "gradrs",
     "seqpar_gradrs", "powersgd", "sharded_head", "sharded_fused",
     "sharded_head_bm"])
-def test_mesh_variants_raise_naming_a6b(variant):
-    with pytest.raises(NotImplementedError, match="A 6c"):
-        steps.build_step("qwen2.5-14b", "train_4k", variant=variant)
+def test_mesh_variants_build_on_one_device(variant):
+    """On one device a variant that only changes shardings, or reads a
+    mesh axis, builds the baseline's step: the same arguments (PowerSGD
+    without its ``pod`` axis keeps no error feedback), one device per
+    argument and no plan."""
+    arch = _two_layers(get_config("qwen2.5-14b"))
+    port = steps.build_step("qwen2.5-14b", "train_4k", variant=variant,
+                            arch_override=arch)
+    base = steps.build_step("qwen2.5-14b", "train_4k", arch_override=arch)
+    assert [(p, t.shape, t.dtype) for p, t in
+            tree_lib.leaves_with_path(list(port.args))] == \
+        [(p, t.shape, t.dtype) for p, t in
+         tree_lib.leaves_with_path(list(base.args))]
+    assert "ef" not in port.args[1]
+    assert all(d == torch.device("meta") for d in port.in_shardings)
+    assert port.plan is None and port.mesh is None
+    assert port.meta == dict(base.meta, variant=variant)
+
+
+# ---------------------------------------------------------------------------
+# bundles over the production meshes, spec for spec
+# ---------------------------------------------------------------------------
+
+PROD = {"single": ((16, 16), ("data", "model")),
+        "multi": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+@functools.lru_cache(maxsize=None)
+def port_mesh(kind):
+    from repro_torch.launch.mesh import make_production_mesh
+    return make_production_mesh(multi_pod=kind == "multi",
+                                devices=["meta"] * math.prod(PROD[kind][0]))
+
+
+def _norm(spec):
+    """A spec of either package as a tuple of None / name / tuple of
+    names (a one-name tuple as the name, an empty one as None)."""
+    out = []
+    for e in spec:
+        if isinstance(e, (tuple, list)):
+            e = tuple(e)
+            e = e[0] if len(e) == 1 else (e or None)
+        out.append(e)
+    return tuple(out)
+
+
+def assert_same_shardings(port, ref, kind):
+    """``in_shardings`` leaf for leaf with ``args`` and spec for spec with
+    the reference's, on the port's mesh; the plans name the same specs."""
+    mesh = port_mesh(kind)
+    assert port.mesh is mesh
+    got = tree_lib.leaves(list(port.in_shardings))
+    want = jax.tree.leaves(list(ref.in_shardings))
+    assert len(got) == len(want) == len(tree_lib.leaves(list(port.args)))
+    assert all(sh.mesh is mesh for sh in got)
+    assert [_norm(sh.spec) for sh in got] == [_norm(sh.spec) for sh in want]
+    assert {k: _norm(v) for k, v in port.plan.specs.items()} == \
+        {k: _norm(v) for k, v in ref.plan.specs.items()}
+    assert port.plan.mesh is mesh
+
+
+@pytest.fixture(scope="module")
+def cached_abstract():
+    """Both packages' abstract parameter trees memoised by config: pure
+    functions of it (meta tensors and ``ShapeDtypeStruct``s, never run
+    here), which every variant of a cell rebuilds."""
+    from repro.models import recsys as JR, seqrec as JS, transformer as JT
+    from repro_torch.models import recsys as TR, seqrec as TS
+    from repro_torch.models import transformer as TT
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name in ((JT, "abstract_lm"), (TT, "abstract_lm"),
+                          (JS, "abstract_seqrec"), (TS, "abstract_seqrec"),
+                          (JR, "abstract_recsys"), (TR, "abstract_recsys")):
+            mp.setattr(mod, name, functools.lru_cache(maxsize=None)(
+                getattr(mod, name)))
+        yield
+
+
+@pytest.mark.parametrize("mesh_kind", sorted(PROD))
+@pytest.mark.parametrize("arch_id,shape_name", cells())
+def test_mesh_bundle_matches_reference(arch_id, shape_name, mesh_kind,
+                                       cached_abstract):
+    """Every active cell at full width on both production meshes (the
+    LMs cut to 2 layers in both packages): the reference's ``build_step``
+    on ``AbstractMesh`` gives the oracle for the arguments, shardings,
+    plan, ``donate`` and ``meta``."""
+    port = steps.build_step(arch_id, shape_name, port_mesh(mesh_kind),
+                            arch_override=_two_layers(get_config(arch_id)))
+    ref = jsteps.build_step(arch_id, shape_name,
+                            AbstractMesh(*PROD[mesh_kind]),
+                            arch_override=_two_layers(jget_config(arch_id)))
+    assert_same_tree(list(port.args), list(ref.args))
+    assert_same_shardings(port, ref, mesh_kind)
+    assert (port.donate, port.meta, port.name) == (ref.donate, ref.meta,
+                                                   ref.name)
+
+
+#: One cell per shape kind of each family, every variant name of its
+#: family on it.  The LMs are cut to 2 layers in both packages (their
+#: specs do not depend on the depth).
+MESH_VARIANT_CELLS = [("qwen2.5-14b", "train_4k"),
+                      ("qwen2.5-14b", "prefill_32k"),
+                      ("qwen2.5-14b", "decode_32k"),
+                      ("qwen3-moe-30b-a3b", "train_4k"),
+                      ("sasrec-recjpq", "serve_users"),
+                      ("sasrec-recjpq", "train_seq"),
+                      ("fm", "retrieval_cand")]
+
+
+def _two_layers(arch):
+    if arch.family != "lm":
+        return arch
+    return dataclasses.replace(arch, model=dataclasses.replace(
+        arch.model, n_layers=2))
+
+
+@pytest.mark.parametrize("arch_id,shape_name,variant", [
+    (a, s, v) for a, s in MESH_VARIANT_CELLS
+    for v in steps.VARIANTS[get_config(a).family]])
+def test_mesh_variant_matches_reference(arch_id, shape_name, variant,
+                                       cached_abstract):
+    for kind in sorted(PROD):
+        port = steps.build_step(
+            arch_id, shape_name, port_mesh(kind), variant,
+            arch_override=_two_layers(get_config(arch_id)))
+        ref = jsteps.build_step(
+            arch_id, shape_name, AbstractMesh(*PROD[kind]), variant,
+            arch_override=_two_layers(jget_config(arch_id)))
+        assert_same_tree(list(port.args), list(ref.args))
+        assert_same_shardings(port, ref, kind)
+        assert port.meta == ref.meta
+
+
+def test_variant_names_cover_the_reference():
+    """Every variant name the reference's builders compare against is in
+    the port's list of its family, and the lists' sizes are the matrix's
+    (18 LM, 19 seqrec, 5 recsys, 1 GNN names)."""
+    src = open(jsteps.__file__).read()
+    names = set(re.findall(
+        r'"((?:sharded_|moe_sort|vocab_tp|seqpar|noseq|powersgd|gradrs)'
+        r'[a-z_]*[a-z]|[a-z_]+_head)"', src)) - {"pq_head"}   # a param key
+    known = set().union(*steps.VARIANTS.values())
+    assert names <= known, names - known
+    assert {f: len(v) for f, v in steps.VARIANTS.items()} == \
+        {"lm": 18, "seqrec": 19, "recsys": 5, "gnn": 1}
 
 
 def test_documented_skips_raise():
