@@ -3494,7 +3494,7 @@ def dryrun_check(dev, arch_id, shape_name, variant, n_layers, dims, card):
     torch.cuda.empty_cache()
     return launches, {"cell": what, "ms": ms, "bound_ms": roof["bound_s"]
                       * 1e3, "min_bound_ms": roof["min_bound_s"] * 1e3,
-                      "args": pred_args, "rise": rise,
+                      "args": pred_args, "rise": rise, "flops": counted,
                       "peak_pred": pred["peak_bytes"], "peak": peak}
 
 
@@ -4049,6 +4049,11 @@ MESH_SERVE_PAIRS = (("sharded_head", "fused_head"),
                     ("sharded_pruned_range", "pruned_range_head"),
                     ("sharded_perquery", "perquery_head"),
                     ("sharded_hier", "hier_head"))
+# One device's share of a data-parallel step, held to the card: (shape,
+# variant, data positions).  Each device holds 2,048 / 16 = 4,096 / 32 =
+# 128 sequences, the batch the one-device step runs on the card.
+MESH_SHARE_CHECKS = (("serve_users", "fused_head", 16),
+                     ("train_seq", "baseline", 32))
 # (c) PowerSGD's bundle cut as the mesh phase cuts qwen2.5-14b.
 MESH_PSGD_DIMS = {"global_batch": 2}
 MESH_PSGD_REL = 1e-5
@@ -4059,9 +4064,13 @@ def mesh_dryrun_matrix(card):
     :data:`MESH_VARIANT_CELLS` on the ``single`` (data=16, model=16) and
     ``multi`` (pod=2, data=16, model=16) meshes, every position on meta,
     in processes of their own; one line a record with the per-device
-    bytes of the arguments the step reads and of every argument.  Any
-    failed record fails the run.  -> how many of the 40 cells' per-device
-    state fits one 80 GB card, by mesh."""
+    bytes of the arguments the step reads and of every argument, and the
+    partitioned step's share of one device: flops, bytes, peak, the
+    collectives (counted, not timed: one card runs none) and their
+    seconds over the links, whether state and peak fit one card, and any
+    op the sharding propagator has no rule for.  Any failed record fails
+    the run.  -> how many of the 40 cells' partitioned steps fit one 80
+    GB card, by mesh."""
     from repro_torch.launch import dryrun
     t0 = time.monotonic()
     cells = [c + ("baseline",) for c in dryrun.iter_cells(
@@ -4071,32 +4080,131 @@ def mesh_dryrun_matrix(card):
     workers = max(1, min(8, os.cpu_count() or 1))
     results = dryrun.run_matrix(cells, MESH_DRY_OUT, workers=workers)
     fits = {"single": 0, "multi": 0}
+    state_fits = {"single": 0, "multi": 0}
+    unruled, retried = {}, {}
     for res in results:
         if not res["ok"]:
             raise AssertionError(f"mesh dry run {res['arch']} {res['shape']} "
                                  f"{res['mesh']} {res['variant']}: "
                                  f"{res['error']}")
-        mem, tot = res["memory"], res["step_total"]
+        mem, tot, roof = res["memory"], res["step_total"], res["roofline"]
         if res["variant"] == "baseline":
-            fits[res["mesh"]] += res["state_fits_card"]
+            fits[res["mesh"]] += res["fits_card"]
+            state_fits[res["mesh"]] += res["state_fits_card"]
+        for op, n in res["unruled_ops"].items():
+            unruled[op] = unruled.get(op, 0) + n
+        for op, n in res["replicated_retries"].items():
+            retried[op] = retried.get(op, 0) + n
         launches = {k: v for k, v in res["kernel_launches"].items() if v}
+        dev_launches = {k: v for k, v in
+                        res["kernel_launches_per_device"].items() if v}
+        colls = " ".join(f"{k} {v['count']}/{v['bytes']} B" for k, v in
+                         sorted(res["collectives"].items())) or "none"
         stand = f" rung {res['rung']}" if "rung" in res else ""
+        unruled_note = (f" unruled {res['unruled_ops']}"
+                        if res["unruled_ops"] else "")
+        retried_note = (f" retried {res['replicated_retries']}"
+                        if res["replicated_retries"] else "")
         print(f"mesh dryrun {res['arch']} {res['shape']} {res['mesh']} "
               f"{res['variant']}: ok a device reads "
               f"{mem['argument_size_in_bytes']} B of state "
               f"{mem['state_size_in_bytes']} B "
               f"({mem['state_size_in_bytes'] / 1e9:.3f} GB, fits a card "
-              f"{res['state_fits_card']}); step total flops {tot['flops']:.4e}"
-              f" bytes {tot['bytes']:.4e} launches {launches}{stand}")
+              f"{res['state_fits_card']}); per device flops "
+              f"{res['flops_per_device']:.4e} bytes "
+              f"{res['bytes_per_device']:.4e} peak "
+              f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB output "
+              f"{mem['output_size_in_bytes']} B launches {dev_launches} "
+              f"collectives {colls} (counted, not timed) collective_s "
+              f"{roof['collective_s'] * 1e3:.3f} ms bound {roof['bound_by']} "
+              f"{roof['bound_s'] * 1e3:.3f} ms fits_card {res['fits_card']}"
+              f"{unruled_note}{retried_note}"
+              f"; step total flops {tot['flops']:.4e} bytes "
+              f"{tot['bytes']:.4e} launches {launches}{stand}")
     n_cells = len(cells) - 2 * len(MESH_VARIANT_CELLS)
     print(f"mesh dryrun matrix: {len(results)} records ({n_cells // 2} cells "
           f"x 2 meshes at baseline, {len(MESH_VARIANT_CELLS)} variant cells "
           f"x 2) on meta in {time.monotonic() - t0:.1f}s with {workers} "
-          f"processes; per-device state fits one 80 GB card for "
-          f"{fits['single']} of {n_cells // 2} cells on single (data=16, "
-          f"model=16) and {fits['multi']} of {n_cells // 2} on multi (pod=2, "
-          f"data=16, model=16); artifacts in {MESH_DRY_OUT}; {card}")
+          f"processes; the partitioned step (per-device state and peak) "
+          f"fits one 80 GB card for {fits['single']} of {n_cells // 2} "
+          f"cells on single (data=16, model=16) and {fits['multi']} of "
+          f"{n_cells // 2} on multi (pod=2, data=16, model=16); per-device "
+          f"state alone fits for {state_fits['single']} and "
+          f"{state_fits['multi']}; ops without a sharding rule "
+          f"{unruled or 'none'}; ops answered only with one more axis "
+          f"replicated {retried or 'none'}; artifacts in {MESH_DRY_OUT}; "
+          f"{card}")
     return fits
+
+
+def mesh_share(dev, card):
+    """sasrec-recjpq's :data:`MESH_SHARE_CHECKS` at full width: the
+    partitioned count over (data=n, model=1), every position on meta,
+    against the one-device bundle run on the card at the batch one device
+    holds (``dryrun_check``): flops and launches exactly, the peak within
+    :data:`DRYRUN_PEAK_TOL`; the training step's gradient all-reduce per
+    device (counted: one card runs none) beside its float parameters'
+    bytes, and nothing else moved but two scalars.  -> the checked runs'
+    launches."""
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import ShardMesh
+    from repro_torch.training import tree as tree_lib
+    total = {}
+    for shape_name, variant, n in MESH_SHARE_CHECKS:
+        t0 = time.monotonic()
+        mesh = ShardMesh(["meta"] * n, ("data", "model"), (n, 1))
+        bundle = steps.build_step("sasrec-recjpq", shape_name, mesh, variant)
+        pred = dryrun._measure(bundle)["device"]
+        b_dev = bundle.shape.dims["global_batch"] // n
+        launches, rec = dryrun_check(dev, "sasrec-recjpq", shape_name,
+                                     variant, None, {"global_batch": b_dev},
+                                     card)
+        what = (f"mesh share sasrec-recjpq {shape_name} {variant} on "
+                f"(data={n}, model=1)")
+        if rec["flops"] != pred["flops_by_dtype"] \
+                or launches != pred["launches"]:
+            raise AssertionError(
+                f"{what}: one device's share predicts flops "
+                f"{pred['flops_by_dtype']} and launches {pred['launches']}, "
+                f"the card ran {rec['flops']} and {launches} at B={b_dev}")
+        gap = rec["peak"] - pred["peak_bytes"]
+        if not (-DRYRUN_PEAK_TOL["below"] * pred["peak_bytes"]
+                - ALLOC_LARGE_SLACK <= gap <= DRYRUN_PEAK_TOL["above"]
+                * pred["peak_bytes"] + DRYRUN_PEAK_TOL["abs_bytes"]):
+            raise AssertionError(
+                f"{what}: peak {rec['peak']} bytes on the card at B={b_dev}, "
+                f"one device's share predicts {pred['peak_bytes']} "
+                f"(tolerance {DRYRUN_PEAK_TOL})")
+        grad = ""
+        if shape_name == "train_seq":
+            floats = [t for t in tree_lib.leaves(bundle.args[0])
+                      if t.is_floating_point()]
+            float_bytes = sum(t.numel() * t.element_size() for t in floats)
+            # A data-parallel step moves its gradients and two float32
+            # scalars (the loss's count of targets, the loss), nothing else.
+            want = {"all-reduce": {"count": len(floats) + 2,
+                                   "bytes": float_bytes + 8}}
+            if pred["collectives"] != want:
+                raise AssertionError(
+                    f"{what}: collectives {pred['collectives']}, a "
+                    f"data-parallel step moves {want}")
+            ar = pred["gradient_collectives"].get("all-reduce", {})
+            grad = (f"; gradient all-reduce over data {ar.get('count', 0)} "
+                    f"collectives, {ar.get('bytes', 0)} B per device "
+                    f"(counted, not timed), float parameters "
+                    f"{float_bytes} B")
+        print(f"{what}: B={bundle.shape.dims['global_batch']} predicts per "
+              f"device flops {pred['flops_by_dtype']} and launches "
+              f"{ {k: v for k, v in launches.items() if v} }, equal to the "
+              f"card's at B={b_dev}; peak predicted "
+              f"{pred['peak_bytes'] / 1e9:.4f} GB, measured "
+              f"{rec['peak'] / 1e9:.4f} GB "
+              f"({gap / max(pred['peak_bytes'], 1):+.2%}); collectives "
+              f"{pred['collectives']}{grad}; "
+              f"{time.monotonic() - t0:.1f}s; {card}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def mesh_serve(dev, card):
@@ -4110,13 +4218,16 @@ def mesh_serve(dev, card):
     multiple of 16 times (once per ``model`` position, not per position);
     the step's time (CUDA events around one call after the counted one)
     beside the one-device step's (median of 3).  The meta counts are the
-    records (a) wrote.  -> launches of the counted steps, by kernel-table
-    row."""
+    records (a) wrote.  The counted step also runs under the partitioned
+    count: each kernel's per-device launches and work (bytes, adds,
+    lookups) equal the launch records of ``model`` position 0 on the
+    card, and, where no host read stood in on meta, the record's.  ->
+    launches of the counted steps, by kernel-table row."""
     import gc
     import torch
     from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import cost
-    from repro_torch.launch import steps
+    from repro_torch.launch import dryrun, steps
     from repro_torch.launch.mesh import make_production_mesh
     arch_id, shape_name = "sasrec-recjpq", "serve_users"
     rows = {}
@@ -4139,15 +4250,46 @@ def mesh_serve(dev, card):
             # The meta count of the same bundle: its record from (a).
             with open(os.path.join(MESH_DRY_OUT, f"{arch_id}__{shape_name}"
                                    f"__{mk}__{variant}.json")) as f:
-                pred = json.load(f)["kernel_launches"]
+                record = json.load(f)
+            pred = record["kernel_launches"]
             b = steps.build_step(arch_id, shape_name, mesh, variant, seed=0)
             with torch.inference_mode(), shd.activation_plan(b.plan):
                 torch.cuda.synchronize()
                 reset_counts()
                 with cost.recording() as rec:
-                    ids, vals = b.step_fn(*b.args)          # also a warm-up
+                    part = dryrun.PartitionCounter(rec, mesh)
+                    for _, t, sh in dryrun._argument_leaves(b):
+                        part.seed(t, sh)
+                    with part:
+                        ids, vals = b.step_fn(*b.args)      # also a warm-up
                 torch.cuda.synchronize()
                 counted = read_counts()
+            # One device's kernel work: model position 0's launches (and
+            # any made outside the shard bodies), as the card recorded them.
+            pos0 = {}
+            for at in (("model", 0), None):
+                for form, w in rec.by_position.get(at, {}).items():
+                    acc = pos0.setdefault(form, dict.fromkeys(w, 0))
+                    for key, v in w.items():
+                        acc[key] += v
+            dev_work = {form: {"launches": part.dev_launches[form], **w}
+                        for form, w in part.totals()["kernel_work"].items()}
+            if dev_work != pos0:
+                raise AssertionError(
+                    f"mesh serve {mk} {variant}: the partitioned count gives "
+                    f"one device {dev_work}, model position 0 launched "
+                    f"{pos0}")
+            rec_work = {form: {"launches":
+                               record["kernel_launches_per_device"][form], **w}
+                        for form, w in record["kernel_work_per_device"]
+                        .items()}
+            if {f: w["launches"] for f, w in rec_work.items()} != \
+                    {f: w["launches"] for f, w in pos0.items()} or (
+                    "rung" not in record and rec_work != pos0):
+                raise AssertionError(
+                    f"mesh serve {mk} {variant}: the record gives one device "
+                    f"{rec_work}, model position 0 launched {pos0}")
+            with torch.inference_mode(), shd.activation_plan(b.plan):
                 start, end = (torch.cuda.Event(enable_timing=True)
                               for _ in range(2))
                 start.record()
@@ -4171,11 +4313,16 @@ def mesh_serve(dev, card):
                 row = ("pq_topk_fused_sentinel" if form == "pq_topk_fused"
                        and variant != "sharded_fused" else form)
                 rows[row] = rows.get(row, 0) + v
+            held_to = ("equal to the record's" if "rung" not in record else
+                       "the record's at the top rung (meta's host reads "
+                       f"stand in) {rec_work}")
             print(f"mesh serve {mk} {dict(mesh.shape)} {variant}: B="
                   f"{ids.shape[0]} k={ids.shape[1]} N={b.arch.model.n_items}"
                   f" ids and scores bit-identical to {flat_variant}; "
                   f"launches {({k: v for k, v in counted.items() if v})} = "
-                  f"meta's ({mesh.shape['model']} model shards); step "
+                  f"meta's ({mesh.shape['model']} model shards); one "
+                  f"device's kernel work {dev_work} = model position 0's "
+                  f"launch records, {held_to}; step "
                   f"{ms:.3f} ms (CUDA events, one call after the counted "
                   f"one), one device {flat_ms[flat_variant]:.3f} ms (median "
                   f"of 3); {time.monotonic() - t0:.1f}s; "
@@ -4272,14 +4419,23 @@ def mesh_powersgd(dev, card):
 
 
 def mesh_dryrun_phase(dev):
-    """The production meshes (ROADMAP A 6c-1): (a) the matrix on meta,
-    (b) the item-sharded serve at full width on the card, (c) one
-    PowerSGD step through its bundle.  -> (b)'s launches by kernel-table
+    """The production meshes (ROADMAP A 6c): (a) the matrix on meta with
+    the partitioned steps' per-device counts, one device's share of a
+    data-parallel serve and training step held to the card, (b) the
+    item-sharded serve at full width on the card, its per-device kernel
+    work held to one ``model`` position's, (c) one PowerSGD step through
+    its bundle.  -> the checked runs' and (b)'s launches by kernel-table
     row."""
+    import gc
+    import torch
     t_phase = time.monotonic()
     card = card_line()
     mesh_dryrun_matrix(card)
-    rows = mesh_serve(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = mesh_share(dev, card)
+    for k, v in mesh_serve(dev, card).items():
+        rows[k] = rows.get(k, 0) + v
     mesh_powersgd(dev, card)
     print(f"mesh dryrun phase: {time.monotonic() - t_phase:.1f}s on {card}")
     return rows

@@ -592,12 +592,14 @@ def _merge_values(vals: torch.Tensor, sc: torch.Tensor, k: int):
 class SeedPlan:
     """One shard's theta seeding, set up: the seed sizes of its policy, its
     tile order and the functions that score a chunk of tiles and estimate
-    survival at a theta."""
+    survival at a theta; ``position`` is the manual region's position it
+    was set up at (``kernels.cost.at_position``), where it runs."""
     sizes: Tuple[int, ...]
     order: torch.Tensor
     score_chunk: object
     survival_est: object
     bq: int
+    position: Optional[Tuple[str, int]] = None
 
 
 def seed_plan(codes: torch.Tensor, s: torch.Tensor, bounds: torch.Tensor,
@@ -646,7 +648,8 @@ def seed_plan(codes: torch.Tensor, s: torch.Tensor, bounds: torch.Tensor,
                                       ).reshape(-1)[None, :], sc, NEG_INF)
 
         est = lambda th: _mean(survival_mask(bounds, th))
-    return SeedPlan(sizes, order, score_chunk, est, bq)
+    return SeedPlan(sizes, order, score_chunk, est, bq,
+                    cost.current_position())
 
 
 def _host_int(t: torch.Tensor, largest: int, what: str) -> int:
@@ -683,7 +686,7 @@ def run_seed_plans(plans, k: int,
     vals, sf, n_used = [], [], []
     for p in plans:
         dev = p.order.device
-        with on_device(dev):
+        with on_device(dev, p.position):
             v = _merge_values(torch.full((p.bq, k), NEG_INF, device=dev),
                               p.score_chunk(p.order[..., :p.sizes[0]]), k)
             vals.append(v)
@@ -697,7 +700,7 @@ def run_seed_plans(plans, k: int,
         flags = []
         for i in active:
             p = plans[i]
-            with on_device(p.order.device):
+            with on_device(p.order.device, p.position):
                 vals[i] = _merge_values(
                     vals[i], p.score_chunk(p.order[..., prev:size]), k)
                 sf_new = p.survival_est(vals[i][:, -1])

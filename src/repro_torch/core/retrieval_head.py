@@ -387,7 +387,7 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
     # ---- bounds and the seed (lockstep), then the shared theta ----------
     bounds, plans = [], []
     for i in shards:
-        with on_device(devs[i]):
+        with on_device(devs[i], (axis, i)):
             bounds.append(pruning.bounds_from_parts(state.backend,
                                                     seed_sh[i], s_sh[i]))
             plans.append(pruning.seed_plan(
@@ -404,7 +404,7 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
     if hier:
         sup = []
         for i in shards:
-            with on_device(devs[i]):
+            with on_device(devs[i], (axis, i)):
                 sup.append(pruning.compact_mask(pruning.survival_mask(
                     bounds[i], theta_sh[i])))
         sup_counts = sharding.host_values(
@@ -419,7 +419,7 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
         for i in shards:
             if sup_counts[i] == 0:
                 continue            # the shard-skip: no child bound, no kernel
-            with on_device(devs[i]):
+            with on_device(devs[i], (axis, i)):
                 i_sup = pruning._rung(sup_counts[i], sup_rungs)
                 r_sup = sup_rungs[i_sup]
                 gid_t = (sup[i][0][:r_sup, None].long() * factor
@@ -450,7 +450,7 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
                                               k_local, tile)
             c = counts[i]
             r = pruning._rung(c, crungs)
-            with on_device(devs[i]):
+            with on_device(devs[i], (axis, i)):
                 out[i] = kernel_ops.pq_topk_tiles(
                     codes_sh[i], s_sh[i], k_local, child_slots[:crungs[r]],
                     tile=tile, live=live_sh[i])
@@ -462,7 +462,7 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
     elif grouped:
         grp_out = []
         for i in shards:
-            with on_device(devs[i]):
+            with on_device(devs[i], (axis, i)):
                 pq_mask = pruning.survival_mask_perquery(bounds[i],
                                                          theta_sh[i])
                 perm, inv, slots2d, gcounts = pruning.group_and_compact(
@@ -478,7 +478,7 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
             perm, inv, slots2d, _ = grp_out[i]
             *gcounts, union = counts[i]
             r = pruning._rung(max(gcounts), rungs)
-            with on_device(devs[i]):
+            with on_device(devs[i], (axis, i)):
                 lv, li = kernel_ops.pq_topk_tiles(
                     codes_sh[i], s_sh[i][perm], k_local,
                     slots2d[:, :rungs[r]], tile=tile, batch_tile=bt,
@@ -490,7 +490,7 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
     else:
         flat = []
         for i in shards:
-            with on_device(devs[i]):
+            with on_device(devs[i], (axis, i)):
                 flat.append(pruning.compact_mask(pruning.survival_mask(
                     bounds[i], theta_sh[i])))
         counts = sharding.host_values(
@@ -499,7 +499,7 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
             t_local)
         for i in shards:
             r = pruning._rung(counts[i], rungs)
-            with on_device(devs[i]):
+            with on_device(devs[i], (axis, i)):
                 out[i] = kernel_ops.pq_topk_tiles(
                     codes_sh[i], s_sh[i], k_local, flat[i][0][:rungs[r]],
                     tile=tile, live=live_sh[i])
@@ -509,7 +509,7 @@ def top_items_pruned_sharded(params: Params, phi: torch.Tensor, k: int,
     # ---- the merge, in request order ------------------------------------
     lvs, gids = [], []
     for i in shards:
-        with on_device(devs[i]):
+        with on_device(devs[i], (axis, i)):
             lv, gid = _finish_shard(*out[i], offsets[i], n, k,
                                     live is not None)
         lvs.append(lv)
@@ -576,7 +576,8 @@ def top_items_sharded(params: Params, phi: torch.Tensor, k: int, mesh,
     codes_sh = sharding.shard_rows(params["codes"], mesh, axis)
     s_sh = sharding.replicate(_subid_scores(params, phi), mesh, axis)
     if method == "pqtopk_fused":
-        return _fused_shard_fn(k, n, n_local, pad)(codes_sh, s_sh, mesh)
+        return _fused_shard_fn(k, n, n_local, pad, axis)(codes_sh, s_sh,
+                                                         mesh)
     scorers = {"pqtopk": scoring.score_pqtopk,
                "pqtopk_onehot": scoring.score_pqtopk_onehot,
                "pqtopk_kernel": kernel_ops.pq_scores,
@@ -585,16 +586,17 @@ def top_items_sharded(params: Params, phi: torch.Tensor, k: int, mesh,
         raise ValueError(f"method {method!r} has no sharded route; one of "
                          f"{sorted(scorers) + ['pqtopk_fused', 'pqtopk_pruned']}")
     r_sh = []
-    for c, sq, off in zip(codes_sh, s_sh, offsets):
-        with on_device(c.device):
+    for i, (c, sq, off) in enumerate(zip(codes_sh, s_sh, offsets)):
+        with on_device(c.device, (axis, i)):
             r = scorers[method](c, sq)
             # Padding rows (global id >= n) out of the top-k.
             gid = off + torch.arange(n_local, device=c.device)
             r_sh.append(torch.where(gid[None, :] < n, r, float("-inf")))
-    return topk_lib.local_then_merge_topk(r_sh, k, mesh, offsets)
+    return topk_lib.local_then_merge_topk(r_sh, k, mesh, offsets, axis)
 
 
-def _fused_shard_fn(k: int, n: int, n_local: int, pad: int):
+def _fused_shard_fn(k: int, n: int, n_local: int, pad: int,
+                    axis: str = "model"):
     """Shard bodies of the fused route: the fused kernel gives each shard's
     top-(k + pad) directly (the (B, N_local) scores never exist), shard
     padding rows (zero codes, on the last shard) are masked after the ids
@@ -605,7 +607,7 @@ def _fused_shard_fn(k: int, n: int, n_local: int, pad: int):
     def run(codes_sh, s_sh, mesh):
         lvs, gids = [], []
         for i, (c, sq) in enumerate(zip(codes_sh, s_sh)):
-            with on_device(c.device):
+            with on_device(c.device, (axis, i)):
                 lv, gid = _finish_shard(*kernel_ops.pq_topk(c, sq, k_local),
                                         i * n_local, n, k, False)
             lvs.append(lv)
@@ -627,9 +629,9 @@ def _dense_top_items_sharded(params: Params, phi: torch.Tensor, k: int,
                          f"rows evenly; {n} does not divide by {n_shards}")
     n_local = n // n_shards
     r_sh = []
-    for t, p in zip(sharding.shard_rows(table, mesh, axis),
-                    sharding.replicate(phi, mesh, axis)):
-        with on_device(t.device):
+    for i, (t, p) in enumerate(zip(sharding.shard_rows(table, mesh, axis),
+                                   sharding.replicate(phi, mesh, axis))):
+        with on_device(t.device, (axis, i)):
             r_sh.append(scoring.score_dense(t.to(p.dtype), p).float())
     return topk_lib.local_then_merge_topk(
-        r_sh, k, mesh, [i * n_local for i in range(n_shards)])
+        r_sh, k, mesh, [i * n_local for i in range(n_shards)], axis)

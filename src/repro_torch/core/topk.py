@@ -78,17 +78,17 @@ def merge_local_topk(local_vals: Sequence[torch.Tensor],
 
 
 def local_then_merge_topk(scores_local: Sequence[torch.Tensor], k: int,
-                          mesh, offsets: Sequence[int],
+                          mesh, offsets: Sequence[int], axis: str = "model",
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each shard's exact top-k of its (B, N_local) scores (shard ``i``'s
-    first item has global id ``offsets[i]``), then
-    :func:`merge_local_topk`."""
+    first item has global id ``offsets[i]``; shard ``i`` is position ``i``
+    of ``axis``), then :func:`merge_local_topk`."""
     vals, ids = [], []
-    for r, off in zip(scores_local, offsets):
-        with sharding.on_device(r.device):
-            v, i = tiled_topk(r, min(k, r.shape[-1]))
+    for i, (r, off) in enumerate(zip(scores_local, offsets)):
+        with sharding.on_device(r.device, (axis, i)):
+            v, idx = tiled_topk(r, min(k, r.shape[-1]))
             vals.append(v)
-            ids.append(i + off)
+            ids.append(idx + off)
     return merge_local_topk(vals, ids, k, mesh)
 
 

@@ -4,14 +4,17 @@ the activation plans.
 
 The reference's manual regions run one ``shard_map`` whose bodies call
 ``lax.all_gather``, ``pmax`` and ``psum``.  Here a body runs per position
-on that position's device (:func:`on_device`, :func:`manual_axis_map`),
-and each collective is a plain function over the per-position list that
-merges on the mesh's lead device, in position order: :func:`all_gather`
-concatenates, :func:`pmax` and :func:`psum` stack and reduce,
-:func:`replicate` sends a lead tensor back to every device.  A value that
-a region returns unmerged is :class:`Varying`: one tensor per position,
-as the reference's ``check_vma=False`` outputs hold one buffer per device
-whatever their spec says.
+on that position's device (:func:`on_device` with the position,
+:func:`manual_axis_map`), and each collective is a plain function over
+the per-position list that merges on the mesh's lead device, in position
+order: :func:`all_gather` concatenates, :func:`pmax` and :func:`psum`
+stack and reduce, :func:`replicate` sends a lead tensor back to every
+device.  A value that a region returns unmerged is :class:`Varying`: one
+tensor per position, as the reference's ``check_vma=False`` outputs hold
+one buffer per device whatever their spec says.  Each of these helpers,
+and each block a region cuts and each constraint, runs through
+:func:`repro_torch.kernels.cost.mesh_op`, which reports it to the dry
+run's partitioned count.
 
 :func:`shard_rows` gives each shard its own contiguous block of a
 row-sharded tensor (the catalogue's codes, its ``live`` mask, a pruned
@@ -63,12 +66,16 @@ class P(tuple):
 # ---------------------------------------------------------------------------
 
 
-def on_device(dev: torch.device):
+@contextlib.contextmanager
+def on_device(dev: torch.device,
+              position: Optional[Tuple[str, int]] = None):
     """Context in which a shard's body runs: the device's CUDA context (its
-    allocations and its current stream), or nothing on the CPU."""
-    if dev.type == "cuda":
-        return torch.cuda.device(dev)
-    return contextlib.nullcontext()
+    allocations and its current stream), or nothing on the CPU; with
+    ``position`` (``(axis, index)``) the body is that position's of a
+    manual region (:func:`repro_torch.kernels.cost.at_position`)."""
+    with (torch.cuda.device(dev) if dev.type == "cuda"
+          else contextlib.nullcontext()), cost.at_position(position):
+        yield
 
 
 def same_device(a: torch.device, b: torch.device) -> bool:
@@ -94,7 +101,8 @@ def replicate(x: torch.Tensor, mesh, axis: Optional[str] = None
     """``x`` on every device of the mesh, or with ``axis`` on every
     position's device of that axis (no copy where it already lies)."""
     devs = mesh.devices if axis is None else mesh.axis_devices(axis)
-    return [to_device(x, d) for d in devs]
+    return cost.mesh_op("replicate", lambda: [to_device(x, d) for d in devs],
+                        (x,), mesh=mesh, axis=axis)
 
 
 def _gathered(parts: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
@@ -106,17 +114,23 @@ def all_gather(parts: Sequence[torch.Tensor], mesh,
                dim: int = 1) -> torch.Tensor:
     """The shards' tensors on the lead device, concatenated along ``dim``
     in shard order (``lax.all_gather(..., tiled=True)``)."""
-    return torch.cat(_gathered(parts, mesh), dim=dim)
+    return cost.mesh_op(
+        "all_gather", lambda: torch.cat(_gathered(parts, mesh), dim=dim),
+        parts, mesh=mesh, dim=dim)
 
 
 def pmax(parts: Sequence[torch.Tensor], mesh) -> torch.Tensor:
     """Elementwise max over the shards, on the lead device."""
-    return torch.stack(_gathered(parts, mesh)).amax(dim=0)
+    return cost.mesh_op(
+        "pmax", lambda: torch.stack(_gathered(parts, mesh)).amax(dim=0),
+        parts, mesh=mesh)
 
 
 def psum(parts: Sequence[torch.Tensor], mesh) -> torch.Tensor:
     """Elementwise sum over the shards, on the lead device."""
-    return torch.stack(_gathered(parts, mesh)).sum(dim=0)
+    return cost.mesh_op(
+        "psum", lambda: torch.stack(_gathered(parts, mesh)).sum(dim=0),
+        parts, mesh=mesh)
 
 
 def pmean(parts: Sequence[torch.Tensor], mesh) -> torch.Tensor:
@@ -134,9 +148,9 @@ def host_values(parts: Sequence[torch.Tensor], mesh, what: str,
     def stand_in():
         return [largest if p.dim() == 0 else [largest] * p.shape[0]
                 for p in parts]
-    return cost.host_read(
+    return cost.mesh_op("host_values", lambda: cost.host_read(
         what, lambda: torch.stack(_gathered(parts, mesh)).tolist(),
-        stand_in, of=parts)
+        stand_in, of=parts), parts, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -233,16 +247,22 @@ def manual_axis_map(fn: Callable, mesh, in_specs, out_specs, *,
     n = len(devs)
     single = isinstance(out_specs, P)
 
+    def block(x, d, i, dev):
+        if d is None or not isinstance(x, torch.Tensor):
+            return _block(x, d, i, n, dev)
+        return cost.mesh_op("block", lambda: _block(x, d, i, n, dev), (x,),
+                            mesh=mesh, axis=axis, dim=d, index=i)
+
     def mapped(*args):
         if len(args) != len(in_specs):
             raise TypeError(f"{len(args)} arguments for {len(in_specs)} "
                             "in_specs")
         outs = []
         for i, dev in enumerate(devs):
-            local = [_tree_map(lambda x, d=_spec_dim(spec, axis):
-                               _block(x, d, i, n, dev), a)
-                     for a, spec in zip(args, in_specs)]
-            with on_device(dev):
+            with on_device(dev, (axis, i)):
+                local = [_tree_map(lambda x, d=_spec_dim(spec, axis):
+                                   block(x, d, i, dev), a)
+                         for a, spec in zip(args, in_specs)]
                 out = fn(*local)
             outs.append((out,) if single else tuple(out))
         specs = (out_specs,) if single else tuple(out_specs)
@@ -315,6 +335,11 @@ def shard_rows(x: torch.Tensor, mesh, axis: str = AXIS
     ``P(axis, None)``), so each block exists once.  A full block already
     on its device is a view (no copy); the others are copied once per
     version of ``x``."""
+    return cost.mesh_op("shard_rows", lambda: _shard_rows(x, mesh, axis),
+                        (x,), mesh=mesh, axis=axis, dim=0)
+
+
+def _shard_rows(x: torch.Tensor, mesh, axis: str) -> List[torch.Tensor]:
     devs = mesh.axis_devices(axis)
     n = x.shape[0]
     n_local = -(-n // len(devs))
@@ -416,7 +441,18 @@ def with_sharding_constraint(x: torch.Tensor, sharding: NamedSharding,
     rec = _RECORD.get()
     if rec is not None:
         rec.append((name, spec, tuple(x.shape)))
-    return x
+    return cost.mesh_op("constraint", lambda: x, (x,), sharding=sharding)
+
+
+def gradients(params: Sequence[torch.Tensor],
+              grads: Sequence[Optional[torch.Tensor]]):
+    """``grads`` itself, each the gradient of the same place's parameter:
+    a record point at which a partitioned count gives each gradient its
+    parameter's sharding, as GSPMD carries a parameter's sharding back to
+    its gradient (a data-parallel partial sum all-reduced, or
+    reduce-scattered onto a sharded parameter)."""
+    return cost.mesh_op("gradients", lambda: grads, tuple(params),
+                        grads=tuple(grads))
 
 
 def constrain(x: torch.Tensor, name: str) -> torch.Tensor:

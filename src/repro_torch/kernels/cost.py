@@ -24,10 +24,20 @@ listed by name (:attr:`Recorder.host_reads`).  A read that bypasses it
 raises on meta (``Tensor.item()`` and copies out of meta tensors have no
 data), which is how the serve-path analysis (``repro_torch.analysis``)
 finds it.
+
+A manual region's body runs for one position of its mesh axis at a time
+(:func:`at_position`); a launch records the position it ran at
+(:attr:`Recorder.by_position`), so one device's share of a partitioned
+step can be read off a run on one card.  :func:`mesh_op` wraps the
+sharding helpers that cut a region's blocks and merge its positions'
+values (``distributed/sharding.py``): inside a recording block it reports
+each one to :attr:`Recorder.on_mesh_op`, which the partitioned count of
+``launch/dryrun.py`` turns into collectives.
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
+from contextvars import ContextVar
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -139,10 +149,14 @@ class Recorder:
     :func:`recording` block.  ``on_launch(name, work, outputs, reads)``, if
     set, sees each launch's outputs and the tensors its kernel reads (the
     dry run tracks their storage);
-    ``hidden`` > 0 while a wrapper's body runs; ``inputs`` lists each
-    launch's :class:`LaunchInputs` (pqtopk launches); ``host_reads`` names
-    every :func:`host_read` in order, and ``stand_ins`` those of a meta
-    tensor, which took their largest value."""
+    ``hidden`` > 0 while a wrapper's body runs, ``in_mesh_op`` > 0 while a
+    :func:`mesh_op`'s does (``on_mesh_op(kind, parts, out, info)`` sees
+    each one after it ran); ``inputs`` lists each launch's
+    :class:`LaunchInputs` (pqtopk launches); ``by_position`` holds the
+    launches and work per form of each :func:`at_position` (``None``:
+    outside every manual region); ``host_reads`` names every
+    :func:`host_read` in order, and ``stand_ins`` those of a meta tensor,
+    which took their largest value."""
     launches: Dict[str, int] = field(
         default_factory=lambda: dict.fromkeys(FORMS, 0))
     work: Dict[str, Dict[str, int]] = field(
@@ -151,8 +165,12 @@ class Recorder:
     inputs: List[LaunchInputs] = field(default_factory=list)
     host_reads: List[str] = field(default_factory=list)
     stand_ins: List[str] = field(default_factory=list)
+    by_position: Dict[Any, Dict[str, Dict[str, int]]] = field(
+        default_factory=dict)
     on_launch: Optional[Callable[[str, Work, Any, Tuple], None]] = None
+    on_mesh_op: Optional[Callable[[str, Tuple, Any, Dict], None]] = None
     hidden: int = 0
+    in_mesh_op: int = 0
 
     def add(self, name: str, work: Work, outputs: Any,
             inputs: Optional[LaunchInputs] = None, reads: Tuple = ()
@@ -162,6 +180,13 @@ class Recorder:
         w["bytes"] += work.bytes
         w["adds"] += work.adds
         w["lookups"] += work.lookups
+        at = self.by_position.setdefault(current_position(), {})
+        p = at.setdefault(name, {"launches": 0, "bytes": 0, "adds": 0,
+                                 "lookups": 0})
+        p["launches"] += 1
+        p["bytes"] += work.bytes
+        p["adds"] += work.adds
+        p["lookups"] += work.lookups
         if inputs is not None:
             self.inputs.append(inputs)
         if self.on_launch is not None:
@@ -173,6 +198,28 @@ class Recorder:
 
 
 _ACTIVE: List[Recorder] = []
+_POSITION: ContextVar[Optional[Tuple[str, int]]] = ContextVar(
+    "mesh_position", default=None)
+
+
+def current_position() -> Optional[Tuple[str, int]]:
+    """``(axis, index)`` of the manual region's body running in this
+    thread, or ``None``."""
+    return _POSITION.get()
+
+
+@contextmanager
+def at_position(position: Optional[Tuple[str, int]]):
+    """Run the block as position ``(axis, index)`` of a manual region's
+    axis (``None``: as the caller runs)."""
+    if position is None:
+        yield
+        return
+    tok = _POSITION.set(tuple(position))
+    try:
+        yield
+    finally:
+        _POSITION.reset(tok)
 
 
 def active() -> Optional[Recorder]:
@@ -210,6 +257,27 @@ def launch(name: str, work: Callable[[], Work], body: Callable[[], Any],
         rec.hidden -= 1
     rec.add(name, work(), out, None if inputs is None else inputs(),
             tuple(t for t in reads if t is not None))
+    return out
+
+
+def mesh_op(kind: str, body: Callable[[], Any], parts: Tuple = (),
+            **info):
+    """Run a sharding helper's ``body`` -> its result.  Inside a
+    recording block its aten ops are marked (:attr:`Recorder.in_mesh_op`)
+    and ``on_mesh_op(kind, parts, result, info)`` is called after it:
+    ``kind`` names the helper (a region's ``block``, ``shard_rows``, a
+    merge such as ``all_gather``, a ``constraint``), ``parts`` are the
+    tensors it takes, ``info`` its mesh, axis, dimension or sharding."""
+    rec = active()
+    if rec is None:
+        return body()
+    rec.in_mesh_op += 1
+    try:
+        out = body()
+    finally:
+        rec.in_mesh_op -= 1
+    if rec.on_mesh_op is not None:
+        rec.on_mesh_op(kind, tuple(parts), out, info)
     return out
 
 

@@ -42,6 +42,7 @@ def value_and_grad(loss_fn: LossFn, params, batch,
     with torch.enable_grad():
         loss, metrics = loss_fn(live, batch)
         grads = torch.autograd.grad(loss, tracked, allow_unused=True)
+    grads = sharding.gradients(tracked, grads)
     by_id = {id(p): (g if g is not None else torch.zeros_like(p))
              for p, g in zip(tracked, grads)}
     grad_tree = tree_lib.tree_map(lambda p: by_id.get(id(p)), live)

@@ -377,6 +377,17 @@ def test_meshes_and_mesh_variants_run(tmp_path, capsys):
                       ).read_text())
     assert rec["ok"] and rec["devices"] == 512
     assert rec["mesh_shape"] == {"pod": 2, "data": 16, "model": 16}
+    # The partitioned step's per-device counts, in the reference's keys.
+    for key in ("flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device", "fits_card",
+                "collectives_by_axis", "unruled_ops",
+                "replicated_retries"):
+        assert rec[key] is not None, key
+    assert "per_device_note" not in rec
+    assert set(rec["collectives"]) <= set(dryrun.COLL_KINDS)
+    assert {"temp_size_in_bytes", "output_size_in_bytes"} <= {
+        k for k, v in rec["memory"].items() if v is not None}
+    assert rec["roofline"]["collective_s"] >= 0
     with pytest.raises(SystemExit):
         dryrun.main(["--save-hlo", "--out", str(tmp_path)])
     with pytest.raises(ValueError, match="mesh"):
@@ -410,6 +421,9 @@ REFERENCE_ARGUMENT_BYTES = {
 #: cascade's shard-aligned rebuild leave alone; the flat range metadata
 #: (621 tiles x 8 x int16 min and max); qwen2.5's dense ``head.w``
 #: (5120, 152064) bf16 over (data, model), which the pruned head skips.
+#: The leaves of each step's output: sasrec-recjpq's top-k (ids, values);
+#: qwen2.5's decode also returns its k and v caches.
+OUTPUT_LEAVES = {"sasrec-recjpq": 2, "qwen2.5-14b": 4}
 UNREAD_BYTES = {("sasrec-recjpq", "baseline"): 317_952,
                 ("sasrec-recjpq", "sharded_pruned"): 317_952,
                 ("sasrec-recjpq", "sharded_pruned_range"): 19_872,
@@ -422,14 +436,16 @@ def test_mesh_argument_bytes_equal_xla(record, tmp_path):
     XLA's ``argument_size_in_bytes`` to the byte, on both production
     meshes at full width; the unread arguments are exactly the ones XLA
     drops.  The mesh record's keys: the whole step's counts under
-    ``step_total``, the per-device counts ``null`` beside the A 6c-2
-    note."""
+    ``step_total``, and the partitioned step's per-device counts filled
+    (one device's share of the flops, its collectives in the reference's
+    format, its peak and outputs)."""
     import os
     arch_id, shape_name, mesh, variant = record.split("__")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, "benchmarks", "artifacts", "dryrun",
                            record + ".json")) as f:
-        xla = json.load(f)["memory"]["argument_size_in_bytes"]
+        xla_mem = json.load(f)["memory"]
+    xla = xla_mem["argument_size_in_bytes"]
     assert xla == REFERENCE_ARGUMENT_BYTES[record]
     res = dryrun.run_cell(arch_id, shape_name, mesh, variant, str(tmp_path),
                           verbose=False)
@@ -442,10 +458,25 @@ def test_mesh_argument_bytes_equal_xla(record, tmp_path):
     assert (mem["alias_size_in_bytes"] > 0) == ("decode" in shape_name)
     assert res["devices"] == (512 if mesh == "multi" else 256)
     assert res["state_fits_card"] is True
-    for key in ("flops_per_device", "bytes_per_device", "collectives",
-                "collective_bytes_per_device", "roofline"):
-        assert res[key] is None, key
-    assert "A 6c-2" in res["per_device_note"]
+    assert "per_device_note" not in res
+    assert 0 < res["flops_per_device"] < res["step_total"]["flops"]
+    assert 0 < res["bytes_per_device"] < res["step_total"]["bytes"]
+    assert mem["temp_size_in_bytes"] > 0 and mem["output_size_in_bytes"] > 0
+    # XLA's output buffer holds the outputs and its tuple's table, 8 bytes
+    # a leaf.  The baseline's plain top-k stays split over the batch axes
+    # in the port; XLA's, after it gathers the whole score matrix, is
+    # replicated.
+    table = 8 * OUTPUT_LEAVES[arch_id]
+    split = (res["devices"] // res["mesh_shape"]["model"]
+             if variant == "baseline" else 1)
+    assert mem["output_size_in_bytes"] * split == \
+        xla_mem["output_size_in_bytes"] - table
+    assert set(res["collectives"]) <= set(dryrun.COLL_KINDS)
+    assert res["collective_bytes_per_device"] == sum(
+        v["bytes"] for v in res["collectives"].values()) > 0
+    assert res["roofline"]["collective_s"] > 0
+    assert res["fits_card"] is True
+    assert res["unruled_ops"] == {}
     assert res["step_total"]["flops"] > 0
     # One pruned seed's pq_scores per cascade, one per model shard in a
     # sharded one; none in pqtopk or the grouped cascade.
