@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.core import topk as topk_lib
 from repro_torch.kernels import cost as _cost
 from repro_torch.kernels.pqtopk import kernel as _k, ref as _ref
@@ -95,8 +96,9 @@ def _merge_slot_winners(tv: torch.Tensor, ti: torch.Tensor, k: int):
     id order, so a stable descending sort of the flattened candidates
     breaks ties by the lowest global id."""
     bq, slots, kk = tv.shape
-    fv, fi = topk_lib.topk(tv.reshape(bq, slots * kk), k)
-    return fv, torch.gather(ti.reshape(bq, slots * kk), 1, fi.long())
+    with tracing.span("head.merge"):
+        fv, fi = topk_lib.topk(tv.reshape(bq, slots * kk), k)
+        return fv, torch.gather(ti.reshape(bq, slots * kk), 1, fi.long())
 
 
 def _remap_dead(fv: torch.Tensor, fi: torch.Tensor, n: int):

@@ -14,6 +14,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import AttentionConfig, SeqRecConfig
 from repro_torch.core import retrieval_head
 from repro_torch.distributed.sharding import constrain
@@ -162,20 +163,23 @@ def serve_topk(params: Params, item_seq: torch.Tensor, cfg: SeqRecConfig, *,
     if pin_rung and sharded_mesh is not None:
         raise ValueError("pin_rung is not threaded through the sharded "
                          "cascade; degrade the flat replicas instead")
-    phi = constrain(sequence_embedding(params, item_seq, cfg), "phi")
-    if sharded_mesh is not None:
-        if method == "pqtopk_pruned" and return_rung:
-            vals, ids, stats = retrieval_head.top_items_pruned_sharded(
-                params["item_emb"], phi, k, sharded_mesh, pq_cfg=cfg.pq,
-                ladder=ladder, return_stats=True)
-            return ids, vals, stats["rung_hit"]
-        vals, ids = retrieval_head.top_items_sharded(
-            params["item_emb"], phi, k, sharded_mesh, method=method,
-            pq_cfg=cfg.pq, ladder=ladder)
-        return ids, vals
-    out = retrieval_head.top_items(params["item_emb"], phi, k, method=method,
-                                   pq_cfg=cfg.pq, ladder=ladder,
-                                   pin_rung=pin_rung, return_rung=return_rung)
+    with tracing.span("model.backbone"):
+        phi = constrain(sequence_embedding(params, item_seq, cfg), "phi")
+    with tracing.span("model.head"):
+        if sharded_mesh is not None:
+            if method == "pqtopk_pruned" and return_rung:
+                vals, ids, stats = retrieval_head.top_items_pruned_sharded(
+                    params["item_emb"], phi, k, sharded_mesh, pq_cfg=cfg.pq,
+                    ladder=ladder, return_stats=True)
+                return ids, vals, stats["rung_hit"]
+            vals, ids = retrieval_head.top_items_sharded(
+                params["item_emb"], phi, k, sharded_mesh, method=method,
+                pq_cfg=cfg.pq, ladder=ladder)
+            return ids, vals
+        out = retrieval_head.top_items(params["item_emb"], phi, k,
+                                       method=method, pq_cfg=cfg.pq,
+                                       ladder=ladder, pin_rung=pin_rung,
+                                       return_rung=return_rung)
     if return_rung:
         vals, ids, rung = out
         return ids, vals, rung

@@ -31,7 +31,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.core.pruning import ARRAY_FIELDS, PrunedHeadState
 from repro_torch.kernels import cost
 from repro_torch.training.fault_tolerance import (SimulatedFailure,
@@ -547,39 +547,42 @@ class RetrievalEngine:
         "k_cap+rung_pin"), so every result carries it."""
         batch_index = self._batch_index
         self._batch_index += 1
-        now = time.monotonic()
-        results: List[Result] = []
-        alive: List[Request] = []
-        for r in reqs:
-            if (now - r.arrival) * 1e3 > r.deadline_ms:
-                results.append(self._shed_result(r, now))
-            else:
-                alive.append(r)
-        if not alive:
-            return results, None
-        bucket = MicroBatcher.bucket(len(alive), self.batcher.max_batch)
-        # Requests in one batch may disagree on k: score once at the batch
-        # k and give each request its own prefix (top-k prefixes nest).
-        kk = self.batch_k([r.k for r in alive])
-        tags = []
-        if k_cap is not None:
-            capped = MicroBatcher.bucket(max(1, min(k_cap, self.max_k)),
-                                         self.max_k)
-            if capped < kk:
-                kk = capped
-                tags.append("k_cap")
-        pinned = rung_pin and self.has_pinned
-        if pinned:
-            tags.append("rung_pin")
-        seqs = np.zeros((bucket, self.seq_len), np.int32)
-        for i, r in enumerate(alive):
-            s = np.asarray(r.payload)[-self.seq_len:]
-            seqs[i, -len(s):] = s
-        with torch.cuda.stream(self.stream):    # None (the CPU): a no-op
-            seqs = torch.from_numpy(seqs).to(self.device)
-        return results, PreparedBatch(
-            alive, seqs, self._variant(bucket, kk, pinned), kk, batch_index,
-            degraded="+".join(tags))
+        with tracing.span("engine.prepare", batch_index):
+            now = time.monotonic()
+            results: List[Result] = []
+            alive: List[Request] = []
+            for r in reqs:
+                if (now - r.arrival) * 1e3 > r.deadline_ms:
+                    results.append(self._shed_result(r, now))
+                else:
+                    alive.append(r)
+            if not alive:
+                return results, None
+            bucket = MicroBatcher.bucket(len(alive),
+                                         self.batcher.max_batch)
+            # Requests in one batch may disagree on k: score once at the
+            # batch k and give each request its own prefix (top-k prefixes
+            # nest).
+            kk = self.batch_k([r.k for r in alive])
+            tags = []
+            if k_cap is not None:
+                capped = MicroBatcher.bucket(max(1, min(k_cap, self.max_k)),
+                                             self.max_k)
+                if capped < kk:
+                    kk = capped
+                    tags.append("k_cap")
+            pinned = rung_pin and self.has_pinned
+            if pinned:
+                tags.append("rung_pin")
+            seqs = np.zeros((bucket, self.seq_len), np.int32)
+            for i, r in enumerate(alive):
+                s = np.asarray(r.payload)[-self.seq_len:]
+                seqs[i, -len(s):] = s
+            with torch.cuda.stream(self.stream):    # None (the CPU): a no-op
+                seqs = torch.from_numpy(seqs).to(self.device)
+            return results, PreparedBatch(
+                alive, seqs, self._variant(bucket, kk, pinned), kk,
+                batch_index, degraded="+".join(tags))
 
     def launch(self, prep: PreparedBatch) -> InFlightBatch:
         """Dispatch a prepared batch; on the card the serve function and
@@ -589,19 +592,20 @@ class RetrievalEngine:
         loop sees them."""
         if self.faults is not None:
             self.faults.check(prep.batch_index)
-        t0 = time.monotonic()
-        if self.stream is None:
-            with torch.inference_mode():
+        with tracing.span("engine.launch", prep.batch_index):
+            t0 = time.monotonic()
+            if self.stream is None:
+                with torch.inference_mode():
+                    out = prep.fn(prep.seqs)
+                return InFlightBatch(prep, out, t0)
+            caller = torch.cuda.current_stream(self.device)
+            if caller != self.stream:
+                self.stream.wait_stream(caller)
+            with torch.cuda.stream(self.stream), torch.inference_mode():
                 out = prep.fn(prep.seqs)
-            return InFlightBatch(prep, out, t0)
-        caller = torch.cuda.current_stream(self.device)
-        if caller != self.stream:
-            self.stream.wait_stream(caller)
-        with torch.cuda.stream(self.stream), torch.inference_mode():
-            out = prep.fn(prep.seqs)
-            host = tuple(_to_pinned(t) for t in out[:2]) + tuple(out[2:])
-            event = torch.cuda.Event()
-            event.record(self.stream)
+                host = tuple(_to_pinned(t) for t in out[:2]) + tuple(out[2:])
+                event = torch.cuda.Event()
+                event.record(self.stream)
         return InFlightBatch(prep, host, t0, event)
 
     def warm(self, bucket: int, kk: int, pinned: bool = False) -> None:
@@ -624,8 +628,16 @@ class RetrievalEngine:
         done, and a timestamp taken without it would measure the
         enqueue."""
         prep = inflight.prep
-        if inflight.event is not None:
-            inflight.event.synchronize()
+        with tracing.span("engine.complete", prep.batch_index):
+            if inflight.event is not None:
+                inflight.event.synchronize()
+            with tracing.span("engine.results", prep.batch_index):
+                return self._results(inflight)
+
+    def _results(self, inflight: InFlightBatch) -> List[Result]:
+        """The host's side of a finished batch: the rung tally, the one
+        result read, the straggler record and the per-request results."""
+        prep = inflight.prep
         out = inflight.out
         if len(out) == 3:
             # A pruned route with a ladder: the third output is the rung.
